@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from scx_torch import resolve_device
 from scx_torch.core import prng
 from scx_torch.core.math3d import quat_from_euler_xyz
 from scx_torch.physics import planar as pp
@@ -26,8 +27,9 @@ from scx_torch.physics.solver import SolverParams
 
 
 def build_pile_fleet(envs: int, bodies: int, device=None) -> pp.PlanarBodies:
-    """[envs, bodies] planar scenes on `device`. Built on the CPU and
-    moved, so every device gets the same bits."""
+    """[envs, bodies] planar scenes on `device` (the card by default).
+    Built on the CPU and moved, so every device gets the same bits."""
+    device = resolve_device(device)
     seed = prng.jhash_coord_seed(1337, torch.arange(envs), 0)         # [E]
     i = torch.arange(bodies)
     s0 = prng.jmix32((seed[:, None] + i * 0x9E3779B9) & 0xFFFFFFFF)   # [E, B]
@@ -47,7 +49,8 @@ def build_pile_fleet(envs: int, bodies: int, device=None) -> pp.PlanarBodies:
 def build_mixed_fleet(envs: int, bodies: int, seed: int, device=None) -> pp.PlanarBodies:
     """[envs, bodies] scenes: a static slab, then spheres, capsules and boxes
     in turn, at random positions, tilts and velocities from numpy's seeded
-    generator."""
+    generator, on `device` (the card by default)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     shape_en = (envs, bodies)
     pos = np.stack([rng.uniform(-4, 4, shape_en), rng.uniform(0.5, 4, shape_en),

@@ -26,7 +26,7 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
-from scx_torch.physics import _build
+from scx_torch import _build, resolve_device
 from scx_torch.physics import planes as pl
 from scx_torch.physics.broadphase import compact_flat_indices
 from scx_torch.physics.contacts import MAX_CONTACTS_PER_PAIR
@@ -648,6 +648,8 @@ class PlanarCache:
 
 
 def empty_planar_cache(envs: int, max_pairs: int, device=None) -> PlanarCache:
+    """An empty cache on `device` (the card by default)."""
+    device = resolve_device(device)
     full = lambda shape, v, dt: torch.full(shape, v, dtype=dt, device=device)
     kp = (envs, _K, max_pairs)
     return PlanarCache(

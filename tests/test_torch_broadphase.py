@@ -80,8 +80,9 @@ def test_state_conversions_exact():
     """convert.rigid_bodies + planar_from_rigid give scx's planar state bit
     for bit, and rigid_from_planar inverts planar_from_rigid."""
     rig = _stack([_rigid_scene(24, 20 + e, True, True) for e in range(3)])
-    want = convert.planar_bodies(jax.tree.map(np.asarray, jax.vmap(jpp.planar_from_rigid)(rig)))
-    t_rig = convert.rigid_bodies(jax.tree.map(np.asarray, rig))
+    want = convert.planar_bodies(jax.tree.map(np.asarray, jax.vmap(jpp.planar_from_rigid)(rig)),
+                                  device="cpu")
+    t_rig = convert.rigid_bodies(jax.tree.map(np.asarray, rig), device="cpu")
     got = tp.planar_from_rigid(t_rig)
     _fields_equal(got, want)
     _fields_equal(tp.rigid_from_planar(got), t_rig)
@@ -95,7 +96,7 @@ def test_planar_broadphase_exact(with_caps, filters, max_pairs):
         _stack([_rigid_scene(40, 10 + e, with_caps, filters) for e in range(4)]))
     want = jax.jit(jax.vmap(lambda b: jpp.planar_broadphase(b, max_pairs)))(fleet_j)
     got = tp.planar_broadphase(
-        convert.planar_bodies(jax.tree.map(np.asarray, fleet_j)), max_pairs)
+        convert.planar_bodies(jax.tree.map(np.asarray, fleet_j), device="cpu"), max_pairs)
     assert int(np.asarray(want[3]).max()) > 0  # pairs exist
     for g, w, name in zip(got, want, ("ia", "ib", "valid", "n_candidates")):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)

@@ -129,12 +129,12 @@ def _run(so, ops, params):
 def test_kernel_source_matches_reference(emulated, envs, bodies, pairs, kinds, triggers):
     params = SolverParams(max_pairs=pairs, iterations=6, shape_kinds=kinds)
     if kinds == ("box",):
-        b = fleet.build_pile_fleet(envs, bodies)
+        b = fleet.build_pile_fleet(envs, bodies, "cpu")
     else:
-        b = fleet.build_mixed_fleet(envs, bodies, 7)
+        b = fleet.build_mixed_fleet(envs, bodies, 7, "cpu")
     if triggers:
         b = replace(b, trigger=(torch.arange(bodies) % 7 == 3).expand(envs, -1))
-    cache = tp.empty_planar_cache(envs, pairs)
+    cache = tp.empty_planar_cache(envs, pairs, device="cpu")
     for _ in range(3):
         b, cache, _ = tp.step_planar_cached(b, params, cache)
     _, ops, _ = tp.middle_operands(b, params, cache)

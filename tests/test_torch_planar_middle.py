@@ -70,7 +70,7 @@ def test_middle_operands_match(warm_fleets, kinds):
     b, cache, ops = warm_fleets[kinds]
     params = convert.solver_params(SolverParams(max_pairs=128, iterations=6))
     _, got, _ = tp.middle_operands(
-        convert.planar_bodies(b), params, convert.planar_cache(cache))
+        convert.planar_bodies(b, "cpu"), params, convert.planar_cache(cache, "cpu"))
     for g, w, name in zip(got, ops, "rows ia ib pvf prev vw0".split()):
         if name in ("ia", "ib", "pvf", "prev"):
             np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
@@ -157,7 +157,7 @@ def test_pair_keys_and_warm_match_with_uids():
         *(jnp.asarray(x) for x in (ia, ib, val, key_id)), jax.tree.map(jnp.asarray, cache))
     t = torch.from_numpy
     ka, kb = tp._pair_keys(t(ia), t(ib), t(val), t(key_id))
-    prev = tp._warm_prev(convert.planar_cache(cache), ka, kb, t(val))
+    prev = tp._warm_prev(convert.planar_cache(cache, "cpu"), ka, kb, t(val))
     for g, w in zip((ka, kb, prev), want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert (np.asarray(want[2])[:, :4] > 0).any()  # some pairs matched

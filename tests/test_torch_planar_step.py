@@ -71,8 +71,8 @@ def test_step_matches_jax_fleet_step(kinds):
     jc = jax.tree.map(lambda x: jnp.broadcast_to(x, (ENVS,) + x.shape),
                       jpp.empty_planar_cache(params.max_pairs))
     step = jax.jit(jax.vmap(lambda b, c: jpp.step_planar_cached(b, params, c)))
-    to_torch = lambda b, c: (convert.planar_bodies(jax.tree.map(np.asarray, b)),
-                             convert.planar_cache(jax.tree.map(np.asarray, c)))
+    to_torch = lambda b, c: (convert.planar_bodies(jax.tree.map(np.asarray, b), "cpu"),
+                             convert.planar_cache(jax.tree.map(np.asarray, c), "cpu"))
     free_b, free_c = to_torch(jb, jc)
     compared = flipped = 0
     for i in range(STEPS):

@@ -106,8 +106,8 @@ def _bench_build_batch(envs, n):
 def test_pile_fleet_bit_equal_to_bench():
     # as bench.py does it: build_batch eagerly, the layout change jitted
     want = jax.jit(jax.vmap(jpp.planar_from_rigid))(_bench_build_batch(4, 64))
-    want = convert.planar_bodies(jax.tree.map(np.asarray, want))
-    got = fleet.build_pile_fleet(4, 64)
+    want = convert.planar_bodies(jax.tree.map(np.asarray, want), "cpu")
+    got = fleet.build_pile_fleet(4, 64, "cpu")
     for name in want.__dataclass_fields__:
         a, b = getattr(got, name), getattr(want, name)
         for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
