@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
-Run from the root of the repository. It drives the port's two main paths
--- the batched physics fleet step (1024 scenes x 64 bodies, max_pairs=128,
-6 solver iterations, box-only narrowphase) and one rendered frame of the
-city chunk at 1280x720 (benchmarks/bench_city_720p.py's frame, ~78.6k
-triangles, 64x128 tiles, 256 cluster slots per tile, mip-mapped
-texture, static bake) -- in phases and exits non-zero at the first
-failure:
+Run from the root of the repository. It drives the port's three main
+paths -- the batched physics fleet step (1024 scenes x 64 bodies,
+max_pairs=128, 6 solver iterations, box-only narrowphase), one rendered
+frame of the city chunk at 1280x720 (benchmarks/bench_city_720p.py's
+frame, ~78.6k triangles, 64x128 tiles, 256 cluster slots per tile,
+mip-mapped texture, static bake) and the RL fleet (CityRLEnv in the two
+configurations of scx_torch.app.rlenv.FLEETS: bench_rlenv.py's 4096 envs
+x capacity 160 through the tile kernel, and bench_rlenv_glb.py's 1024
+envs x capacity 512 of GLB buildings through the cluster kernel, both
+128x128 RGB-D with the static bake) -- in phases and exits non-zero at
+the first failure:
 
   1. device: a CUDA device must be present; prints the card's name and
      power limit as nvidia-smi reports them;
@@ -33,7 +37,19 @@ failure:
      covered; then a few frames through the plain rasterizer, whose
      G-buffer must meet the contract above against the kernel's and whose
      rgb must be within 1e-6; (c) the tile path (use_clusters=False) on
-     the cube scene, one tile-kernel launch per frame.
+     the cube scene, one tile-kernel launch per frame;
+  7. batched raster kernels vs plain: both fleets are built (build time
+     printed) and step once; that step's observation setup goes through
+     its binning, then rasterize_tiles_batched / rasterize_clusters_batched
+     and their plain versions, over every env, held to the contract of
+     phase 5, with equal work per tile;
+  8. RL path: per fleet, 2 warm steps, rollout(actions, 10) twice (the
+     faster counts) and 10 step() calls, printing rl_env_steps_per_sec for
+     both; it fails unless each step launched one batched raster kernel
+     and one middle kernel, with nan_rollbacks and pair_overflow 0 and
+     finite, covered [E, 128, 128, 4] observations; then one unbaked step
+     of the tile fleet, whose observation through the kernel and through
+     the plain rasterizer must meet the contract above.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX is imported.
@@ -48,6 +64,7 @@ import time
 
 ENVS, BODIES, STEPS, PLAIN_STEPS = 1024, 64, 240, 20
 FRAMES, WARM_FRAMES, PLAIN_FRAMES = 30, 3, 3
+RL_LEN = 10  # steps per RL rollout and per timed run of step()
 # the contract of scx's fused-kernel test (tests/test_physics_planar.py):
 # validity may differ only at graze depth; cand exact where both are
 # valid; trig exact; vwc within 5e-5; lam within 5e-4
@@ -142,6 +159,8 @@ def reset_counts():
     pp.MIDDLE_KERNEL_LAUNCHES = 0
     trc.RASTER_CLUSTERS_LAUNCHES = 0
     tr.RASTER_TILES_LAUNCHES = 0
+    trc.RASTER_CLUSTERS_BATCHED_LAUNCHES = 0
+    tr.RASTER_TILES_BATCHED_LAUNCHES = 0
 
 
 def count_ops(fn) -> int:
@@ -184,13 +203,13 @@ def bound(bytes_moved: float, ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def raster_bound(work, params, list_bytes: int):
+def raster_bound(work, params, list_bytes: int, envs: int = 1):
     """Bound of a raster kernel from the triangles its pass A evaluated per
-    tile (`work`): their setup rows and the lists read once, the G-buffer
-    written once; PASS_A_OPS per (triangle, pixel of its tile) and
-    PASS_B_OPS per pixel."""
+    tile (`work`, over every env's tiles): their setup rows and the lists
+    read once, the G-buffer written once; PASS_A_OPS per (triangle, pixel
+    of its tile) and PASS_B_OPS per pixel."""
     evaluated = int(work.sum())
-    pixels = params.tiles_y * params.tile_h * params.tiles_x * params.tile_w
+    pixels = envs * params.tiles_y * params.tile_h * params.tiles_x * params.tile_w
     ops = evaluated * params.tile_h * params.tile_w * PASS_A_OPS + pixels * PASS_B_OPS
     return bound(evaluated * 32 * 4 + list_bytes + pixels * 7 * 4, ops)
 
@@ -209,7 +228,7 @@ def check_gbuffer(tag, got, ref):
     differ = torch.zeros_like(ref["covered"])
     for k in ("depth", "color", "uv", "mat"):
         d = got[k] != ref[k]
-        differ |= d.any(-1) if d.dim() == 3 else d
+        differ |= d.any(-1) if k in ("color", "uv") else d
     return max(errs.values()), int(differ.sum())
 
 
@@ -261,6 +280,7 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
     from scx_torch import _build
+    from scx_torch.app import rlenv
     from scx_torch.ops import raster as tr
     from scx_torch.ops import raster_clusters as trc
     from scx_torch.physics import fleet
@@ -451,7 +471,118 @@ def main():
     _, g_p, _ = tile_frame(plain=True)
     check_gbuffer("tile path plain vs kernel", g, g_p)
 
-    # ---- 7. records ------------------------------------------------------
+    # ---- 7. batched raster kernels vs plain, on the fleets' setups --------
+    fleets = {}
+    for name in rlenv.FLEETS:
+        t0 = time.perf_counter()
+        fleets[name] = rlenv.make_fleet(name, dev)
+        torch.cuda.synchronize()
+        print(json.dumps({"fleet": name, "envs": fleets[name].n_envs,
+                          "build_s": time.perf_counter() - t0, "card": card}), flush=True)
+    batched = {}
+    for name, env in fleets.items():
+        act = torch.tensor([rlenv.FLEET_ACTIONS[name]], device=dev).repeat(env.n_envs, 1)
+        env.step(act)  # the setup the first step renders
+        setup, aabb, valid, p = env.setup_obs(env.state, env.baked)
+        e = env.n_envs
+        work_k = torch.zeros((e, p.n_tiles), dtype=torch.int32, device=dev)
+        work_p = torch.zeros_like(work_k)
+        if p.use_clusters:
+            kname, kc = "rasterize_clusters_batched", p.max_clusters_per_tile
+            ids, counts, zmin, dropped = trc.frame_cluster_lists(setup, aabb, valid, p)
+            kernel = lambda w=None: trc.rasterize_clusters_batched(setup, ids, counts, p, kc,
+                                                                   zmin, w)
+            plain = lambda w=None: trc.rasterize_clusters_batched_reference(
+                setup, ids, counts, p, kc, zmin, w)
+            list_bytes = 4 * (ids.numel() + counts.numel() + zmin.numel())
+            extra = {"listed_clusters": int(counts.sum()), "cluster_drop": int(dropped.sum())}
+        else:
+            kname = "rasterize_tiles_batched"
+            binned, counts = rp.bin_triangles_batched(setup, aabb, valid, p)
+            kernel = lambda w=None: tr.rasterize_tiles_batched(binned, counts, p, w)
+            plain = lambda w=None: tr.rasterize_tiles_batched_reference(binned, counts, p, w)
+            list_bytes = 4 * counts.numel()
+            extra = {"max_tile_occupancy": int(counts.max()),
+                     "tile_overflow": int((counts >= p.max_tris_per_tile).sum())}
+        got, ref = kernel(work_k), plain(work_p)
+        err, differ = check_gbuffer(kname, got, ref)
+        if not torch.equal(work_k, work_p) or not ref["covered"].any():
+            fail(f"{kname}: pass A's work per tile differs from the plain version's, "
+                 "or nothing covered")
+        k_ms, p_ms = cuda_ms(kernel, 20), cuda_ms(plain, 2)
+        b_ms, b_by = raster_bound(work_k, p, list_bytes, envs=e)
+        batched[kname] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                          "bound_by": b_by}
+        print(json.dumps({
+            "check": kname, "fleet": name, "envs": e, "compared_envs": e, "tiles": p.n_tiles,
+            "tile": [p.tile_h, p.tile_w], "max_tris": p.max_tris,
+            "evaluated_tris": int(work_k.sum()), "max_tile_evaluated_tris": int(work_k.max()),
+            **extra, "max_abs_err": err, "pixels_differing": differ, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "card": card,
+        }), flush=True)
+
+    # ---- 8. the RL path: reset/step/rollout at full width ------------------
+    for name, env in fleets.items():
+        act = torch.tensor([rlenv.FLEET_ACTIONS[name]], device=dev).repeat(env.n_envs, 1)
+        kname = ("rasterize_clusters_batched" if env.raster.use_clusters
+                 else "rasterize_tiles_batched")
+        for _ in range(2):
+            env.step(act)
+        reset_counts()
+        roll = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            means, rewards = env.rollout(act, RL_LEN)  # ends in host reads
+            roll.append(time.perf_counter() - t0)
+            if env.last_info != {"nan_rollbacks": 0, "pair_overflow": 0}:
+                fail(f"{name} rollout: {env.last_info}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RL_LEN):
+            obs, reward = env.step(act)  # reads the step's info to the host
+            if env.last_info != {"nan_rollbacks": 0, "pair_overflow": 0}:
+                fail(f"{name} step: {env.last_info}")
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        steps = 3 * RL_LEN
+        raster_n = (trc.RASTER_CLUSTERS_BATCHED_LAUNCHES if env.raster.use_clusters
+                    else tr.RASTER_TILES_BATCHED_LAUNCHES)
+        other_n = (tr.RASTER_TILES_BATCHED_LAUNCHES if env.raster.use_clusters
+                   else trc.RASTER_CLUSTERS_BATCHED_LAUNCHES)
+        mid_n = pp.MIDDLE_KERNEL_LAUNCHES
+        batched[kname]["launches"] = raster_n
+        base = {"metric": "rl_env_steps_per_sec", "path": "cuda-kernel", "config": name,
+                "envs": env.n_envs, "capacity": env.capacity, "obs": list(obs.shape[1:]),
+                "card": card}
+        print(json.dumps({**base, "entry": "rollout", "value": env.n_envs * RL_LEN / min(roll),
+                          "steps": RL_LEN, "seconds": roll}), flush=True)
+        print(json.dumps({**base, "entry": "step", "value": env.n_envs * RL_LEN / step_s,
+                          "steps": RL_LEN, "seconds": step_s}), flush=True)
+        print(json.dumps({"check": f"{name} launches", "steps": steps, kname: raster_n,
+                          "middle": mid_n, "other_batched_raster": other_n}), flush=True)
+        if raster_n != steps or mid_n != steps or other_n != 0:
+            fail(f"{name}: {raster_n} {kname} and {mid_n} middle launches in {steps} steps")
+        covered = obs[..., 3] < 1.0
+        if (tuple(obs.shape) != (env.n_envs, 128, 128, 4) or not torch.isfinite(obs).all()
+                or not covered.any() or not torch.isfinite(means).all()):
+            fail(f"{name}: observations of shape {tuple(obs.shape)}, not finite or not covered")
+        print(json.dumps({"check": f"{name} observations", "covered_share":
+                          covered.float().mean().item(), "reward_mean": reward.mean().item(),
+                          "obs_mean": means[-1].mean().item()}), flush=True)
+    del fleets
+    # one unbaked step of the tile fleet, rendered by the kernel and plainly
+    env = rlenv.make_fleet("tiles", dev, static_bake=False)
+    env.step(torch.tensor([rlenv.FLEET_ACTIONS["tiles"]], device=dev).repeat(env.n_envs, 1))
+    _, g_k, _ = env.observe()
+    _, g_p, _ = env.observe(plain=True)
+    err_u, differ = check_gbuffer("unbaked tile fleet plain vs kernel", g_k, g_p)
+    print(json.dumps({"check": "unbaked tile fleet plain vs kernel", "envs": env.n_envs,
+                      "max_tris": env.raster.max_tris, "max_abs_err": err_u,
+                      "pixels_differing": differ}), flush=True)
+    del env
+
+    # ---- 9. records ------------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": "planar_middle", "route": "cuda",
          "source": "scx_torch/physics/csrc/planar_middle.cu",
@@ -468,6 +599,13 @@ def main():
          "replaces": "scx/ops/raster.py:155", "launches": tile_launches,
          "max_abs_err": err_t, "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound,
          "bound_by": t_by, "library_ms": None},
+        {"name": "rasterize_clusters_batched", "route": "cuda",
+         "source": "scx_torch/ops/csrc/raster.cu",
+         "replaces": "scx/ops/raster_clusters.py:478",
+         **batched["rasterize_clusters_batched"], "library_ms": None},
+        {"name": "rasterize_tiles_batched", "route": "cuda",
+         "source": "scx_torch/ops/csrc/raster.cu", "replaces": "scx/ops/raster.py:263",
+         **batched["rasterize_tiles_batched"], "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,345 @@
+"""Vectorized RL environment (port of scx.app.rlenv): thousands of city envs
+with scripted traffic and RGB-D observations per step.
+
+Each env is an independent city scene: a procedural sector (env i is
+deterministic in (seed, i)), a player vehicle driven by continuous actions,
+OnRails traffic following the lane graph, physics at a fixed dt, and a
+square RGB-D observation rendered by the env-batched raster kernels
+(scx_torch.ops.raster.rasterize_tiles_batched by default, or
+scx_torch.ops.raster_clusters.rasterize_clusters_batched with
+use_cluster_obs). Every column carries the env axis written out, [E, C,
+...]; scx's one jitted step over a vmap becomes one eager pass over the
+fleet, whose physics middle and raster are hand-written CUDA kernels.
+
+This is the env's serving path: reset, step and rollout with given
+actions, obs_mode "rgbd" and one agent per env. Training helpers,
+state observations and several agents per env are not ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from scx_torch import resolve_device
+from scx_torch.app.sandbox import SimParams, make_sim_tick, spawn_player_vehicle
+from scx_torch.core import math3d as m3
+from scx_torch.core.config import EngineConfig, TrafficConfig, WorldPartitionConfig
+from scx_torch.physics.solver import SolverParams
+from scx_torch.physics.world import empty_sync_cache
+from scx_torch.render import staticbake as sb
+from scx_torch.render.camera import CameraParams, camera_view_proj
+from scx_torch.render.mesh import build_mesh_pool
+from scx_torch.render.pipeline import RasterParams, raster_gbuffer_batched, setup_triangles
+from scx_torch.state import entity as ent
+from scx_torch.traffic.lanes import LaneGraphBuilder
+from scx_torch.world import procgen
+from scx_torch.world.culling import cull_entities, emit_draws
+
+
+def squash_raw_actions(raw: torch.Tensor) -> torch.Tensor:
+    """Map an unbounded [..., 4] sample onto this env's action convention:
+    throttle, brake and handbrake in [0, 1], steer in [-1, 1]."""
+    t = torch.tanh(raw)
+    return torch.stack([(t[..., 0] + 1.0) * 0.5, (t[..., 1] + 1.0) * 0.5, t[..., 2],
+                        (t[..., 3] + 1.0) * 0.5], dim=-1)
+
+
+class CityRLEnv:
+    """Batched sim-for-RL env. Actions: [E, 4] (throttle, brake, steer,
+    handbrake); observations: RGB-D [E, H, W, 4] (color, then depth);
+    rewards: forward progress of the player car, [E] (m per step).
+
+    Arguments are scx's, with `device` (the card by default) in place of
+    `interpret`."""
+
+    def __init__(
+        self,
+        n_envs: int,
+        capacity: int = 160,
+        obs_size: int = 128,
+        n_traffic: int = 8,
+        seed: int = 1337,
+        substeps: int = 1,
+        device=None,
+        obs_tile_h: int = 64,
+        use_cluster_obs: bool | None = None,
+        meshes: list | None = None,
+        prop_mesh_ids: list | None = None,
+        draw_budget: int | None = None,
+        max_tris: int | None = None,
+        obs_clip_extra: int = 512,
+        static_bake: bool = False,
+    ):
+        self.device = resolve_device(device)
+        self.n_envs = n_envs
+        self.capacity = capacity
+        # tight agent cap: the AI compacts its control laws to [cap + 8]
+        # agent rows; only n_traffic agents exist, so capping tier-A
+        # promotions at n_traffic + 1 changes nothing and right-sizes the
+        # vehicle slot set
+        self.cfg = EngineConfig(traffic=TrafficConfig(
+            max_vehicles_total=max(24, n_traffic + 4),
+            max_vehicles_physics=min(24, n_traffic + 1),
+        ))
+        self.pool = build_mesh_pool(meshes, device=self.device)
+        self._prop_mesh_ids = prop_mesh_ids
+        self.draw_budget = draw_budget if draw_budget is not None else capacity
+        self._tris_per_draw = int(self.pool.mesh_tri_count.max())
+        t_need = (max_tris if max_tris is not None
+                  else int(self.draw_budget * self._tris_per_draw * 1.2))
+        self.raster = RasterParams(
+            width=obs_size,
+            height=obs_size,
+            tile_h=min(obs_tile_h, obs_size),
+            tile_w=128,
+            max_tris=max(1024, -(-t_need // 1024) * 1024),
+            max_tris_per_tile=128,
+            use_clusters=bool(use_cluster_obs),
+            max_clusters_per_tile=128,
+            clip_extra=obs_clip_extra,
+        )
+        # warm-started 6 iterations, box-only narrowphase: every body the
+        # city content spawns is a box
+        self.sim = SimParams(solver=SolverParams(
+            iterations=self.cfg.physics.solver_iterations, shape_kinds=("box",)))
+        self._tick = make_sim_tick(self.cfg, self.sim, max_substeps=substeps,
+                                   vehicle_reserve=4)
+        self.substeps = substeps
+        self.seed = seed
+        self.n_traffic = n_traffic
+        self.player = capacity - 1
+
+        # lanes shared by every env (each uses sector (0, 0)'s cross)
+        lanes = LaneGraphBuilder(max_nodes=64, max_segments=32)
+        lanes.build_procedural_for_sector((0, 0), (0.0, 0.0, 0.0), (64.0, 0.0, 64.0))
+        self._lane_builder = lanes
+        self.lanes = lanes.to_arrays(self.device)
+
+        self.static_bake = static_bake
+        self.reset()
+
+    # ------------------------------------------------------------------
+    def _bake_static(self):
+        """Bake per-env static triangle columns and size the split raster
+        params (static / dynamic / combined bin), as scx does."""
+        # exact static triangle demand, max over envs (one host read at
+        # reset), rounded to the 128-lane grid
+        total = int(sb.static_tri_total(self.state, self.pool).max())
+        t_s = max(128, -(-total // 128) * 128)
+        pad_s = (min(self.raster.clip_extra, t_s // 4) // 32) * 32
+        self._params_static = self.raster.replace(max_tris=t_s + pad_s, clip_extra=pad_s)
+        self._dyn_budget = self.n_traffic + 5
+        t_d = -(-int(self._dyn_budget * self._tris_per_draw * 1.2) // 128) * 128
+        pad_d = (min(128, t_d // 4) // 32) * 32
+        self._params_dyn = self.raster.replace(max_tris=t_d + pad_d, clip_extra=pad_d)
+        self._params_bin = self.raster.replace(max_tris=t_s + pad_s + t_d + pad_d)
+        return sb.bake_static_tris(self.state, self.pool, t_s)
+
+    def _build_env_np(self, env_idx: int) -> dict:
+        """Numpy column overrides for one env, from the procedural sector of
+        seed + env_idx (scx tries its native baker first; the port uses
+        scx_torch.world.procgen, which it is bit-compatible with)."""
+        recs = procgen.generate_sector_spawns(WorldPartitionConfig(seed=self.seed + env_idx),
+                                              0, 0)
+        arrs = procgen.spawns_to_arrays(recs)
+        pos_arr, yaw_arr, scale_arr = arrs["pos"], arrs["rot"][:, 1], arrs["scale"]
+        k = len(recs)
+        n = self.capacity
+        cols = {
+            "alive": np.zeros(n, bool),
+            "pos": np.zeros((n, 3), np.float32),
+            "rot": np.tile(np.asarray([1, 0, 0, 0], np.float32), (n, 1)),
+            "scale": np.ones((n, 3), np.float32),
+            "mesh": np.full(n, -1, np.int32),
+            "mat": np.full(n, -1, np.int32),
+            "body_type": np.full(n, ent.BODY_NONE, np.int32),
+            "half": np.full((n, 3), 0.5, np.float32),
+            "mode": np.full(n, ent.TRAFFIC_NONE, np.int32),
+            "lane": np.full(n, -1, np.int32),
+            "lane_s": np.zeros(n, np.float32),
+        }
+        cols["alive"][:k] = True
+        cols["pos"][:k] = pos_arr
+        cols["rot"][:k, 0] = np.cos(yaw_arr * 0.5)
+        cols["rot"][:k, 2] = np.sin(yaw_arr * 0.5)
+        cols["scale"][:k] = scale_arr
+        if self._prop_mesh_ids is not None:
+            ids = np.asarray(self._prop_mesh_ids, np.int32)
+            cols["mesh"][:k] = ids[(np.arange(k) + env_idx) % len(ids)]
+        else:
+            cols["mesh"][:k] = 0
+        cols["mat"][:k] = 0
+        cols["body_type"][:k] = ent.BODY_STATIC
+        cols["half"][:k] = scale_arr * 0.5
+
+        segs = self._lane_builder.sector_segments[(0, 0)]
+        for i in range(self.n_traffic):
+            slot = k + i
+            lane = segs[i % len(segs)]
+            seg = self._lane_builder.segments[lane]
+            s0 = (6.0 + 7.0 * i) % max(seg["length"], 1.0)
+            p = np.asarray(self._lane_builder.nodes[seg["start"]]["pos"]) + (
+                np.asarray(seg["dir"]) * s0)
+            cols["alive"][slot] = True
+            cols["pos"][slot] = [p[0], 0.35, p[2]]
+            cols["scale"][slot] = [1.8, 1.2, 4.2]
+            cols["half"][slot] = [0.9, 0.6, 2.1]
+            cols["mesh"][slot] = 0
+            cols["mat"][slot] = 0
+            cols["mode"][slot] = ent.TRAFFIC_ONRAILS
+            cols["lane"][slot] = lane
+            cols["lane_s"][slot] = s0
+        return cols
+
+    def _build_batch(self) -> ent.EntityState:
+        """Bake every env's columns on the host (a plain loop: the GIL
+        serializes the per-env work anyway), upload them once and merge
+        them into the template fleet with the player car in the last slot."""
+        per_env = [self._build_env_np(i) for i in range(self.n_envs)]
+        s = {key: torch.from_numpy(np.stack([c[key] for c in per_env])).to(self.device)
+             for key in per_env[0]}
+        batch = ent.alloc_entity_state(self.capacity, self.n_envs, self.device)
+        spawn_player_vehicle(batch, self.player, pos=(32.0, 0.6, 16.0))
+        # the player's slot keeps its template (vehicle) values
+        kp = torch.arange(self.capacity, device=self.device) >= self.capacity - 1
+
+        def sel(new, old):
+            return torch.where(kp.reshape((1, -1) + (1,) * (old.dim() - 2)), old, new)
+
+        t, r, b, tr = batch.transform, batch.render, batch.body, batch.traffic
+        t.pos, t.rot, t.scale = sel(s["pos"], t.pos), sel(s["rot"], t.rot), sel(s["scale"], t.scale)
+        r.mesh_id, r.material_id = sel(s["mesh"], r.mesh_id), sel(s["mat"], r.material_id)
+        b.body_type, b.half_extents = sel(s["body_type"], b.body_type), sel(s["half"], b.half_extents)
+        tr.mode, tr.lane_id = sel(s["mode"], tr.mode), sel(s["lane"], tr.lane_id)
+        tr.lane_s = sel(s["lane_s"], tr.lane_s)
+        batch.alive = batch.alive | s["alive"]
+        return batch
+
+    # ------------------------------------------------------------------
+    def _camera_vp(self, state: ent.EntityState) -> torch.Tensor:
+        """Chase-view viewProj [E, 4, 4]: 7 m behind and 3 m above the
+        player, looking at 1 m above it."""
+        dev = self.device
+        vec = lambda *v: torch.tensor(v, dtype=torch.float32, device=dev)
+        ppos = state.transform.pos[:, self.player]
+        prot = state.transform.rot[:, self.player]
+        z = vec(0.0, 0.0, 1.0)
+        fwd = m3.quat_rotate(prot, z.expand_as(ppos))
+        fwd = m3.safe_normalize(fwd * vec(1.0, 0.0, 1.0), z)
+        cam_pos = ppos - fwd * 7.0 + vec(0.0, 3.0, 0.0)
+        return camera_view_proj(cam_pos, ppos + vec(0.0, 1.0, 0.0), vec(0.0, 1.0, 0.0),
+                                aspect=1.0, params=CameraParams(fov_y_deg=70.0))
+
+    def setup_obs(self, state: ent.EntityState, baked=None):
+        """Triangle setup of every env's chase view: (setup [E, T, 32], aabb
+        [E, T, 4], valid [E, T], the RasterParams to bin them with). With a
+        bake, scenery projects from the baked columns and only the dynamic
+        handful goes through cull/emit/setup (statics first, then
+        dynamics: the unbaked path's draw order)."""
+        vp = self._camera_vp(state)
+        visible, mats = cull_entities(state, vp)
+        if baked is None:
+            draws = emit_draws(state, visible, mats, self.draw_budget)
+            return (*setup_triangles(draws, self.pool, vp, self.raster), self.raster)
+        s_setup, s_aabb, s_valid = sb.setup_static_from_bake(baked, vp, self._params_static)
+        dyn = visible & ~sb.static_entity_mask(state)
+        draws = emit_draws(state, dyn, mats, self._dyn_budget)
+        d_setup, d_aabb, d_valid = setup_triangles(draws, self.pool, vp, self._params_dyn)
+        return (torch.cat([s_setup, d_setup], -2), torch.cat([s_aabb, d_aabb], -2),
+                torch.cat([s_valid, d_valid], -1), self._params_bin)
+
+    def observe(self, state: ent.EntityState | None = None, *, plain: bool = False):
+        """RGB-D observations of a fleet state (default: the current one):
+        (obs [E, H, W, 4], gbuffer dict, raster stats). plain=True
+        rasterizes with the kernels' plain PyTorch versions."""
+        state = self.state if state is None else state
+        setup, aabb, valid, params = self.setup_obs(state, self.baked)
+        g, stats = raster_gbuffer_batched(setup, aabb, valid, params, plain=plain)
+        return torch.cat([g["color"], g["depth"][..., None]], dim=-1), g, stats
+
+    def _step_impl(self, batch, cache, actions):
+        new_batch, new_cache, _, counts = self._tick(
+            batch, cache, self.lanes, self.player, actions, self.substeps)
+        # NaN-state detection with rollback: a solver blow-up in one env
+        # reverts that env to its pre-step state
+        fin = lambda x: torch.isfinite(x).flatten(1).all(1)
+        ok = (fin(new_batch.transform.pos) & fin(new_batch.transform.rot)
+              & fin(new_batch.body.vel) & fin(new_batch.body.omega))
+
+        def keep(n, o):
+            return torch.where(ok.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
+
+        batch = ent.tree_map(keep, new_batch, batch)
+        cache = ent.tree_map(keep, new_cache, cache)
+        info = {"nan_rollbacks": (~ok).sum(dtype=torch.int32),
+                "pair_overflow": counts["pair_overflow"].max()}
+        obs, _, _ = self.observe(batch)
+        rot = batch.transform.rot[:, self.player]
+        fwd = m3.quat_rotate(rot, torch.tensor([0.0, 0.0, 1.0], device=rot.device).expand(
+            rot.shape[:-1] + (3,)))
+        fwd_speed = (batch.body.vel[:, self.player] * fwd).sum(-1)
+        reward = fwd_speed * (self.cfg.physics.fixed_dt * self.substeps)
+        return batch, cache, obs, reward, info
+
+    # ------------------------------------------------------------------
+    def reset(self) -> torch.Tensor:
+        """Rebuild every env; returns a zero observation [E, H, W, 4]."""
+        self.state = self._build_batch()
+        self.baked = self._bake_static() if self.static_bake else None
+        self.cache = empty_sync_cache(self.n_envs, self.sim.solver.max_pairs, self.device)
+        self.last_info = {"nan_rollbacks": 0, "pair_overflow": 0}
+        return torch.zeros((self.n_envs, self.raster.height, self.raster.width, 4),
+                           device=self.device)
+
+    def step(self, actions):
+        """actions [E, 4] -> (obs [E, H, W, 4], reward [E]); reads the
+        step's info to the host (last_info)."""
+        actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
+        self.state, self.cache, obs, reward, info = self._step_impl(
+            self.state, self.cache, actions)
+        self.last_info = {k: int(v) for k, v in info.items()}
+        return obs, reward
+
+    def rollout(self, actions, length: int = 10):
+        """`length` full steps (sim + traffic + render) chained on the
+        device, observations consumed there (a per-env mean); one host sync
+        at the end. Returns (obs_means [L, E], rewards [L, E])."""
+        actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
+        nans = torch.zeros((), dtype=torch.int32, device=self.device)
+        overflow = torch.zeros((), dtype=torch.int32, device=self.device)
+        means, rewards = [], []
+        for _ in range(length):
+            self.state, self.cache, obs, reward, info = self._step_impl(
+                self.state, self.cache, actions)
+            means.append(obs.reshape(obs.shape[0], -1).mean(-1))
+            rewards.append(reward)
+            nans = nans + info["nan_rollbacks"]
+            overflow = torch.maximum(overflow, info["pair_overflow"])
+        self.last_info = {"nan_rollbacks": int(nans), "pair_overflow": int(overflow)}
+        return torch.stack(means), torch.stack(rewards)
+
+
+# The RL fleet's two configurations at full width: bench_rlenv.py's default
+# (tile path) and bench_rlenv_glb.py's GLB scene (cluster path).
+FLEETS = {
+    "tiles": dict(n_envs=4096, capacity=160, obs_size=128, n_traffic=8),
+    "glb_clusters": dict(n_envs=1024, capacity=512, obs_size=128, n_traffic=12,
+                         use_cluster_obs=True, draw_budget=256, max_tris=12288, obs_tile_h=16),
+}
+# the fixed action each bench drives its fleet with (throttle, brake, steer,
+# handbrake; bench_rlenv.py, bench_rlenv_glb.py)
+FLEET_ACTIONS = {"tiles": (0.7, 0.0, 0.1, 0.0), "glb_clusters": (0.6, 0.0, 0.1, 0.0)}
+
+
+def make_fleet(name: str, device=None, static_bake: bool = True, n_envs: int | None = None):
+    """One of FLEETS as a CityRLEnv on `device` (the card by default);
+    n_envs cuts the env count (depth), nothing else."""
+    kw = dict(FLEETS[name], static_bake=static_bake, device=device)
+    if n_envs is not None:
+        kw["n_envs"] = n_envs
+    if name == "glb_clusters":
+        from scx_torch.assets.glbgen import building_pool_meshes
+
+        kw["meshes"], kw["prop_mesh_ids"] = building_pool_meshes(8)
+    return CityRLEnv(**kw)

@@ -2,8 +2,9 @@
 
 Inputs are the numpy pytrees that `jax.tree.map(np.asarray, x)` gives for
 scx's RigidBodies, PlanarBodies and PlanarCache (any leading fleet dims),
-MeshPool, DrawList, Materials and MipTextures, and any object with
-SolverParams' or RasterParams' attributes. Fields are read by attribute,
+EntityState (with a leading env axis), LaneArrays, MeshPool, DrawList,
+Materials and MipTextures, and any object with SolverParams',
+RasterParams' or SimParams' attributes. Fields are read by attribute,
 so this module needs neither jax nor scx. Nothing here has learned
 weights: this state and scene data is what carries across. Tensors go to
 `device`, the card unless the caller names another.
@@ -22,9 +23,17 @@ from scx_torch.physics.planes import Q4, V3
 from scx_torch.physics.rigid import RigidBodies
 from scx_torch.physics.solver import SolverParams
 from scx_torch.render.mesh import MeshPool
+from scx_torch.app.sandbox import SimParams
+from scx_torch.physics.vehicle import VehicleParams
 from scx_torch.render.pipeline import DrawList, Materials, MipTextures, RasterParams
+from scx_torch.state import entity as ent
+from scx_torch.traffic.lanes import LaneArrays
 
-_WIDE = ("layer", "mask")  # u32 in scx, int64 here
+_WIDE = ("layer", "mask", "generation", "components", "name_hash")  # u32 in scx, int64 here
+
+
+_GROUPS = {"transform": ent.TransformState, "render": ent.RenderState, "body": ent.BodyState,
+           "traffic": ent.TrafficState, "vehicle": ent.VehicleState}
 
 
 def _tensor(a, device, name=""):
@@ -39,7 +48,9 @@ def _convert(cls, src, device):
     out = {}
     for f in fields(cls):
         v = getattr(src, f.name)
-        if isinstance(v, (bool, int, float)):  # static fields (sizes, flags)
+        if cls is ent.EntityState and f.name in _GROUPS:  # nested column groups
+            out[f.name] = _convert(_GROUPS[f.name], v, device)
+        elif isinstance(v, (bool, int, float)):  # static fields (sizes, flags)
             out[f.name] = v
         elif isinstance(v, tuple):  # scx's V3 / Q4 component planes
             kind = V3 if len(v) == 3 else Q4
@@ -87,3 +98,22 @@ def mip_textures(t, device=None) -> MipTextures:
 
 def raster_params(p) -> RasterParams:
     return RasterParams(**{f.name: getattr(p, f.name) for f in fields(RasterParams)})
+
+
+def entity_state(s, device=None) -> ent.EntityState:
+    """scx's EntityState with a leading env axis ([E, C, ...] columns)."""
+    return _convert(ent.EntityState, s, device)
+
+
+def lane_arrays(l, device=None) -> LaneArrays:
+    return _convert(LaneArrays, l, device)
+
+
+def baked(b, device=None) -> torch.Tensor:
+    """Static-bake columns ([E, 26, T] in the RL fleet)."""
+    return _tensor(b, resolve_device(device))
+
+
+def sim_params(p) -> SimParams:
+    return SimParams(solver=solver_params(p.solver), vehicle=VehicleParams(
+        **{f.name: getattr(p.vehicle, f.name) for f in fields(VehicleParams)}))

@@ -1,5 +1,5 @@
 """The parts of scx.core.math3d that the port needs: quaternions for the
-physics, vectors and 4x4 matrices for the render path.
+physics and the sim, vectors and 4x4 matrices for the render path.
 
 Quaternions are (w, x, y, z) in the last dim, as in scx.
 """
@@ -141,14 +141,57 @@ def mat4_perspective_rh_zo(fovy: float, aspect: float, z_near: float, z_far: flo
 
 
 def mat4_look_at_rh(eye: torch.Tensor, target: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """[..., 4, 4] view matrices from [..., 3] eye / target / up."""
     fwd = normalize(target - eye)
-    right = normalize(torch.linalg.cross(fwd, up))
+    right = normalize(torch.linalg.cross(fwd, up.expand_as(fwd)))
     true_up = torch.linalg.cross(right, fwd)
-    m = torch.eye(4, dtype=torch.float32, device=eye.device)
-    m[0, 0:3] = right
-    m[1, 0:3] = true_up
-    m[2, 0:3] = -fwd
-    m[0, 3] = -dot(right, eye)
-    m[1, 3] = -dot(true_up, eye)
-    m[2, 3] = dot(fwd, eye)
+    m = _eye4(eye.shape[:-1], eye)
+    m[..., 0, 0:3] = right
+    m[..., 1, 0:3] = true_up
+    m[..., 2, 0:3] = -fwd
+    m[..., 0, 3] = -dot(right, eye)
+    m[..., 1, 3] = -dot(true_up, eye)
+    m[..., 2, 3] = dot(fwd, eye)
     return m
+
+
+# ---------------------------------------------------------------------------
+# The sim's half: rotations of vectors, safe normalization, frustum planes.
+# ---------------------------------------------------------------------------
+
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a x b over the last dim, componentwise as jnp.cross computes it."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def norm(v, dim=-1, keepdim=False):
+    return torch.sqrt(torch.clamp(dot(v, v, dim=dim, keepdim=keepdim), min=0.0))
+
+
+def safe_normalize(v, fallback=None, eps=EPSILON):
+    """Normalize; rows of length <= eps become `fallback` (default zeros)."""
+    n = norm(v, keepdim=True)
+    ok = n > eps
+    unit = v / torch.where(ok, n, 1.0)
+    if fallback is None:
+        fallback = torch.zeros_like(v)
+    return torch.where(ok, unit, fallback)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) v [..., 3] by unit quaternion(s) q [..., 4]."""
+    qv = q[..., 1:4]
+    w = q[..., 0:1]
+    t = 2.0 * cross(qv, v)
+    return v + w * t + cross(qv, t)
+
+
+def frustum_from_view_proj(vp: torch.Tensor) -> torch.Tensor:
+    """Six inward planes (nx, ny, nz, d), normalized, from viewProj [..., 4,
+    4]: left, right, bottom, top, near, far -> [..., 6, 4]."""
+    r0, r1, r2, r3 = vp[..., 0, :], vp[..., 1, :], vp[..., 2, :], vp[..., 3, :]
+    planes = torch.stack([r3 + r0, r3 - r0, r3 + r1, r3 - r1, r2, r3 - r2], dim=-2)
+    n = norm(planes[..., 0:3], keepdim=True)
+    return planes / torch.clamp(n, min=EPSILON)

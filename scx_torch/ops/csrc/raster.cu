@@ -1,10 +1,15 @@
-// The two single-scene raster kernels of the render path, for Hopper (sm_90a).
+// The raster kernels of the render path and of the RL fleet's
+// observations, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels
-//   scx/ops/raster_clusters.py::rasterize_clusters (body _tile_body), and
-//   scx/ops/raster.py::rasterize_tiles (body _raster_tile_body).
-// Both share one scheme, and here one kernel template and one per-pixel
-// device function: per screen tile,
+//   scx/ops/raster_clusters.py::rasterize_clusters (body _tile_body),
+//   scx/ops/raster_clusters.py::rasterize_clusters_batched (body
+//     _kernel_batched),
+//   scx/ops/raster.py::rasterize_tiles (body _raster_tile_body), and
+//   scx/ops/raster.py::rasterize_tiles_batched (the same body over envs).
+// All four share one scheme, and here one kernel template and one
+// per-pixel device function; a single scene is a fleet of one env. Per
+// screen tile of each env,
 //   pass A walks the tile's list in order (clusters of 32 setup rows in
 //          slot order, or the tile's first min(count, K) binned triangles)
 //          and keeps, per pixel, the depth and code of the nearest covering
@@ -16,25 +21,31 @@
 // The cluster kernel stops pass A at the first slot whose cluster min depth
 // is >= the tile's max depth over all pixels of the padded tile
 // (raster_clusters.py:194-196): the lists are near-to-far, so nothing after
-// it can win a pixel. The test is kept exactly as written.
+// it can win a pixel. The test is kept exactly as written. The env-batched
+// TPU kernel tests a 15-bit floor-quantized zmin instead
+// (raster_clusters.py:503-511): with quant_z the kernel computes it, in
+// f32, as floor(clip(zmin, 0, 1) * 32767) * f32(1 / 32767). It decides
+// where the exit fires, so the work per tile, and is kept as it rounds.
 //
-// In/out (all contiguous):
-//   clusters: setup [C*32, 32] f32, ids [tiles, KC] i32, counts [tiles] i32,
-//             zmin [C] f32
-//   tiles   : binned [tiles, K, 32] f32, counts [tiles] i32
-//   out     : depth [Hp, Wp] f32 (1 where uncovered), attrs [6, Hp, Wp] f32
-//             (r, g, b, u, v, mat; 0 where uncovered), and optionally
-//             work [tiles] i32: the triangles pass A evaluated in the tile
+// In/out (all contiguous; E envs, E = 1 for a single scene):
+//   clusters: setup [E, C*32, 32] f32, ids [E, tiles, KC] i32 (cluster ids
+//             of the env), counts [E, tiles] i32, zmin [E, C] f32
+//   tiles   : binned [E, tiles, K, 32] f32, counts [E, tiles] i32
+//   out     : depth [E, Hp, Wp] f32 (1 where uncovered), attrs [E, 6, Hp, Wp]
+//             f32 (r, g, b, u, v, mat; 0 where uncovered), and optionally
+//             work [E, tiles] i32: the triangles pass A evaluated in the tile
 //             (the listed ones up to the hz exit that can cover a pixel).
 // The plain PyTorch versions are scx_torch.ops.raster_clusters.
-// rasterize_clusters_reference and scx_torch.ops.raster.
-// rasterize_tiles_reference; every plane is evaluated as (a*px + b*py) + c
-// and the file is built with --fmad=false and IEEE division, so each
-// value rounds as there.
+// rasterize_clusters_reference / rasterize_clusters_batched_reference and
+// scx_torch.ops.raster.rasterize_tiles_reference /
+// rasterize_tiles_batched_reference; every plane is evaluated as
+// (a*px + b*py) + c and the file is built with --fmad=false and IEEE
+// division, so each value rounds as there.
 //
-// Design: one CTA per tile of the lattice (tile = ty * tiles_x + tx), each
-// thread owning PPT pixels (pixel p = i * blockDim + thread) whose depth and
-// winner code stay in registers. Each list entry's 32 setup rows (4 KB) are
+// Design: one CTA per (env, tile) of the lattice (blockIdx.x = env * tiles
+// + tile, tile = ty * tiles_x + tx), each thread owning PPT pixels (pixel
+// p = i * blockDim + thread) whose depth and winner code stay in
+// registers. Each list entry's 32 setup rows (4 KB) are
 // staged in shared memory and read by every thread as broadcasts. The hz
 // test is one __syncthreads_or over "some pixel of mine is deeper than the
 // cluster's zmin". Triangles whose l0 plane is (0, 0, c < 0) -- the rows
@@ -44,7 +55,10 @@
 // (triangle, pixel) over every listed triangle up to the hz exit; the
 // bytes are the G-buffer written once (28 B per pixel) and the staged
 // rows. At 720p there are 120 tiles, so the grid fills under one wave of
-// the H100's 132 SMs at one 512-thread CTA each: a simple kernel, not tuned.
+// the H100's 132 SMs at one 512-thread CTA each; the RL fleet's
+// observations give 8,192 CTAs (4096 envs x 2 tiles of 64x128, or 1024
+// envs x 8 tiles of 16x128), which fill the card. A simple kernel, not
+// tuned.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,6 +71,7 @@ constexpr int CLUSTER = 32;  // setup rows per staged block (one cluster)
 constexpr int N_ATTR = 6;
 constexpr int PPT = 16;           // pixels per thread
 constexpr int MAX_THREADS = 512;  // so a tile holds at most 8192 pixels
+constexpr float ZQ = 32767.0f;    // 15-bit zmin quantization of the batched TPU kernel
 
 __device__ __forceinline__ float plane(const float* s, int f, float px, float py) {
   return s[f] * px + s[f + 1] * py + s[f + 2];
@@ -97,10 +112,13 @@ __global__ void __launch_bounds__(MAX_THREADS)
 raster_kernel(const float* __restrict__ rows, const int* __restrict__ ids,
               const int* __restrict__ counts, const float* __restrict__ zmin,
               float* __restrict__ depth_out, float* __restrict__ attr_out, int* __restrict__ work,
-              int n_clusters, int ntx, int th, int tw, int hp, int wp, int kmax) {
+              int n_clusters, int n_tiles, int ntx, int th, int tw, int hp, int wp, int kmax,
+              int quant_z) {
   __shared__ float buf[CLUSTER * N_FIELDS];
-  const int tile = blockIdx.x;
+  const int g = blockIdx.x;  // env * n_tiles + tile
+  const int env = g / n_tiles, tile = g - env * n_tiles;
   const int ty = tile / ntx, tx = tile - ty * ntx;
+  const size_t env_rows = CLUSTERS ? (size_t)env * n_clusters * CLUSTER : 0;
   const int npix = th * tw;
   const int nthr = blockDim.x, t = threadIdx.x;
 
@@ -115,7 +133,7 @@ raster_kernel(const float* __restrict__ rows, const int* __restrict__ ids,
     win[i] = -1;
   }
 
-  int cnt = counts[tile];
+  int cnt = counts[g];
   cnt = cnt < 0 ? 0 : (cnt > kmax ? kmax : cnt);
   const int n_blocks = CLUSTERS ? cnt : (cnt + CLUSTER - 1) / CLUSTER;
   int evaluated = 0;
@@ -123,19 +141,20 @@ raster_kernel(const float* __restrict__ rows, const int* __restrict__ ids,
     const float* src;
     int n_tri;
     if (CLUSTERS) {
-      const int cid = ids[tile * kmax + b];
+      const int cid = ids[(size_t)g * kmax + b];
       if (cid < 0 || cid >= n_clusters) __trap();
       // hierarchical z: stop when zmin >= the max depth of every pixel
       float my_max = -INFINITY;
 #pragma unroll
       for (int i = 0; i < PPT; ++i)
         if (i * nthr + t < npix) my_max = fmaxf(my_max, depth[i]);
-      const float zc = zmin[cid];
+      float zc = zmin[(size_t)env * n_clusters + cid];
+      if (quant_z) zc = floorf(fminf(fmaxf(zc, 0.f), 1.f) * ZQ) * (float)(1.0 / 32767.0);
       if (!__syncthreads_or(!(zc >= my_max))) break;
-      src = rows + (size_t)cid * CLUSTER * N_FIELDS;
+      src = rows + (env_rows + (size_t)cid * CLUSTER) * N_FIELDS;
       n_tri = CLUSTER;
     } else {
-      src = rows + ((size_t)tile * kmax + (size_t)b * CLUSTER) * N_FIELDS;
+      src = rows + ((size_t)g * kmax + (size_t)b * CLUSTER) * N_FIELDS;
       n_tri = cnt - b * CLUSTER < CLUSTER ? cnt - b * CLUSTER : CLUSTER;
     }
     for (int k = t; k < n_tri * N_FIELDS; k += nthr) buf[k] = src[k];
@@ -160,19 +179,21 @@ raster_kernel(const float* __restrict__ rows, const int* __restrict__ ids,
     if (win[i] >= 0) {
       const float* s;
       if (CLUSTERS) {
-        const int cid = ids[tile * kmax + win[i] / CLUSTER];
-        s = rows + ((size_t)cid * CLUSTER + win[i] % CLUSTER) * N_FIELDS;
+        const int cid = ids[(size_t)g * kmax + win[i] / CLUSTER];
+        s = rows + (env_rows + (size_t)cid * CLUSTER + win[i] % CLUSTER) * N_FIELDS;
       } else {
-        s = rows + ((size_t)tile * kmax + win[i]) * N_FIELDS;
+        s = rows + ((size_t)g * kmax + win[i]) * N_FIELDS;
       }
       resolve(s, px[i], py[i], out);
     }
+    const size_t plane_px = (size_t)hp * wp;
     const size_t at = (size_t)(ty * th + p / tw) * wp + tx * tw + p % tw;
-    depth_out[at] = depth[i];
+    depth_out[(size_t)env * plane_px + at] = depth[i];
 #pragma unroll
-    for (int a = 0; a < N_ATTR; ++a) attr_out[(size_t)a * hp * wp + at] = out[a];
+    for (int a = 0; a < N_ATTR; ++a)
+      attr_out[((size_t)env * N_ATTR + a) * plane_px + at] = out[a];
   }
-  if (work != nullptr && t == 0) work[tile] = evaluated;
+  if (work != nullptr && t == 0) work[g] = evaluated;
 }
 
 int threads_for(int th, int tw) {
@@ -190,26 +211,30 @@ int threads_for(int th, int tw) {
 extern "C" {
 
 int scx_raster_clusters(const void* setup, const void* ids, const void* counts,
-                        const void* zmin, void* depth, void* attrs, void* work, int n_clusters,
-                        int ntx, int nty, int th, int tw, int kc, void* stream) {
+                        const void* zmin, void* depth, void* attrs, void* work, int n_envs,
+                        int n_clusters, int ntx, int nty, int th, int tw, int kc, int quant_z,
+                        void* stream) {
   const int nthr = threads_for(th, tw);
-  if (th <= 0 || tw <= 0 || nthr > MAX_THREADS || kc <= 0 || ntx <= 0 || nty <= 0)
+  if (th <= 0 || tw <= 0 || nthr > MAX_THREADS || kc <= 0 || ntx <= 0 || nty <= 0 ||
+      n_envs <= 0 || (long long)n_envs * ntx * nty > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
-  raster_kernel<true><<<ntx * nty, nthr, 0, (cudaStream_t)stream>>>(
+  raster_kernel<true><<<n_envs * ntx * nty, nthr, 0, (cudaStream_t)stream>>>(
       (const float*)setup, (const int*)ids, (const int*)counts, (const float*)zmin,
-      (float*)depth, (float*)attrs, (int*)work, n_clusters, ntx, th, tw, nty * th, ntx * tw,
-      kc);
+      (float*)depth, (float*)attrs, (int*)work, n_clusters, ntx * nty, ntx, th, tw, nty * th,
+      ntx * tw, kc, quant_z);
   return (int)cudaGetLastError();
 }
 
 int scx_raster_tiles(const void* binned, const void* counts, void* depth, void* attrs,
-                     void* work, int ntx, int nty, int th, int tw, int k, void* stream) {
+                     void* work, int n_envs, int ntx, int nty, int th, int tw, int k,
+                     void* stream) {
   const int nthr = threads_for(th, tw);
-  if (th <= 0 || tw <= 0 || nthr > MAX_THREADS || k <= 0 || ntx <= 0 || nty <= 0)
+  if (th <= 0 || tw <= 0 || nthr > MAX_THREADS || k <= 0 || ntx <= 0 || nty <= 0 ||
+      n_envs <= 0 || (long long)n_envs * ntx * nty > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
-  raster_kernel<false><<<ntx * nty, nthr, 0, (cudaStream_t)stream>>>(
+  raster_kernel<false><<<n_envs * ntx * nty, nthr, 0, (cudaStream_t)stream>>>(
       (const float*)binned, nullptr, (const int*)counts, nullptr, (float*)depth,
-      (float*)attrs, (int*)work, 0, ntx, th, tw, nty * th, ntx * tw, k);
+      (float*)attrs, (int*)work, 0, ntx * nty, ntx, th, tw, nty * th, ntx * tw, k, 0);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,15 @@
 """Tile rasterizer over per-tile triangle lists (port of scx.ops.raster).
 
 `rasterize_tiles` replaces the TPU kernel scx/ops/raster.py::rasterize_tiles
-(body `_raster_tile_body`): per screen tile, pass A walks the tile's
-triangle list in order and keeps, per pixel, the nearest covering
-triangle (strict `<`, so the lowest index wins ties); pass B evaluates the
-winner's perspective-correct attributes. On a CUDA tensor it launches the
-hand-written kernel of csrc/raster.cu (one CTA per tile); on a CPU tensor
-it takes `rasterize_tiles_reference`, the same rules in plain PyTorch
-vectorised over tiles.
+(body `_raster_tile_body`), and `rasterize_tiles_batched` its env-batched
+variant (the RL fleet's observations): per screen tile (of each env),
+pass A walks the tile's triangle list in order and keeps, per pixel, the
+nearest covering triangle (strict `<`, so the lowest index wins ties);
+pass B evaluates the winner's perspective-correct attributes. On a CUDA
+tensor each launches the hand-written kernel of csrc/raster.cu (one CTA
+per tile of each env); on a CPU tensor it takes its plain version
+(`rasterize_tiles_reference`, `rasterize_tiles_batched_reference`), the
+same rules in plain PyTorch vectorised over tiles.
 
 `rasterize_reference` is the brute-force oracle: every triangle over
 every pixel, for tests at small sizes.
@@ -25,28 +27,31 @@ N_ATTR = 6  # r, g, b, u, v, mat
 MAX_TILE_PIXELS = 512 * 16
 
 RASTER_TILES_LAUNCHES = 0  # launches of the CUDA tile kernel, never reset here
+RASTER_TILES_BATCHED_LAUNCHES = 0  # the same over a fleet (rasterize_tiles_batched)
 
 _F32, _I32 = torch.float32, torch.int32
 
 
 def gbuffer_from_planes(depth, attrs, params) -> dict:
-    """Padded depth [Hp,Wp] + attrs [6,Hp,Wp] -> the G-buffer dict, cropped
-    to the frame: depth, color [H,W,3], uv [H,W,2], mat i32, covered."""
+    """Padded depth [..., Hp, Wp] + attrs [..., 6, Hp, Wp] -> the G-buffer
+    dict, cropped to the frame: depth, color [..., H, W, 3], uv [..., H, W,
+    2], mat i32, covered."""
     h, w = params.height, params.width
-    depth = depth[:h, :w]
-    attrs = attrs[:, :h, :w]
+    depth = depth[..., :h, :w]
+    attrs = attrs[..., :h, :w]
     return {
         "depth": depth,
-        "color": attrs[0:3].permute(1, 2, 0),
-        "uv": attrs[3:5].permute(1, 2, 0),
-        "mat": attrs[5].to(_I32),
+        "color": attrs[..., 0:3, :, :].movedim(-3, -1),
+        "uv": attrs[..., 3:5, :, :].movedim(-3, -1),
+        "mat": attrs[..., 5, :, :].to(_I32),
         "covered": depth < 1.0,
     }
 
 
-def tile_lattice(params, device):
-    """Pixel-center coordinates (px, py), each [n_tiles, th, tw], of the
-    padded tile lattice (tile = ty * tiles_x + tx)."""
+def tile_lattice(params, device, envs: int = 1):
+    """Pixel-center coordinates (px, py), each [envs * n_tiles, th, tw], of
+    the padded tile lattice (row env * n_tiles + tile, tile = ty * tiles_x
+    + tx)."""
     th, tw, ntx = params.tile_h, params.tile_w, params.tiles_x
     tiles = torch.arange(params.n_tiles, device=device)
     ty = (tiles // ntx).to(_F32)[:, None, None]
@@ -55,15 +60,20 @@ def tile_lattice(params, device):
     ix = torch.arange(tw, dtype=_F32, device=device)[None, None, :]
     py = (iy + ty * th + 0.5).expand(-1, th, tw)
     px = (ix + tx * tw + 0.5).expand(-1, th, tw)
+    if envs > 1:
+        px, py = px.repeat(envs, 1, 1), py.repeat(envs, 1, 1)
     return px, py
 
 
-def untile(x, params):
-    """[n_tiles, ..., th, tw] -> [..., Hp, Wp]."""
+def untile(x, params, envs: int | None = None):
+    """[n_tiles, ..., th, tw] -> [..., Hp, Wp]; with envs, [envs * n_tiles,
+    ..., th, tw] -> [envs, ..., Hp, Wp]."""
     nty, ntx, th, tw = params.tiles_y, params.tiles_x, params.tile_h, params.tile_w
+    e = 1 if envs is None else envs
     mid = x.shape[1:-2]
-    x = x.reshape(nty, ntx, -1, th, tw).permute(2, 0, 3, 1, 4)
-    return x.reshape(*mid, nty * th, ntx * tw)
+    x = x.reshape(e, nty, ntx, -1, th, tw).permute(0, 3, 1, 4, 2, 5)
+    x = x.reshape(e, *mid, nty * th, ntx * tw)
+    return x[0] if envs is None else x
 
 
 def resolve_winners(rows, px, py, hit):
@@ -117,31 +127,43 @@ def depth_pass(planes, px, py, depth, winner, code, gate):
     return torch.where(m, best_z, depth), torch.where(m, code + best_j.to(_I32), winner), work
 
 
-def rasterize_tiles_reference(binned, params, counts=None, work=None) -> dict:
-    """Plain PyTorch version of the tile kernel: binned [n_tiles, K,
-    N_FIELDS] + counts [n_tiles] -> G-buffer dict. `work` [n_tiles] i32, if
-    given, receives the number of triangles pass A evaluated per tile
-    (those that can cover a pixel, see `can_cover`)."""
-    n_tiles, k = binned.shape[0], params.max_tris_per_tile
+def rasterize_tiles_batched_reference(binned, counts, params, work=None) -> dict:
+    """Plain PyTorch version of the tile kernel over a fleet: binned [E,
+    n_tiles, K, N_FIELDS] + counts [E, n_tiles] -> G-buffer dict with a
+    leading env axis. `work` [E, n_tiles] i32, if given, receives the
+    number of triangles pass A evaluated per tile (those that can cover a
+    pixel, see `can_cover`). The env axis folds into the tile axis."""
+    e, n_tiles, k = binned.shape[0], params.n_tiles, params.max_tris_per_tile
     dev = binned.device
-    if counts is None:
-        counts = torch.full((n_tiles,), k, dtype=_I32, device=dev)
-    n = torch.clamp(counts, max=k)
-    px, py = tile_lattice(params, dev)
-    depth = torch.ones((n_tiles, params.tile_h, params.tile_w), dtype=_F32, device=dev)
+    flat = binned.reshape(e * n_tiles, k, N_FIELDS)
+    n = torch.clamp(counts, max=k).reshape(-1)
+    px, py = tile_lattice(params, dev, e)
+    depth = torch.ones((e * n_tiles, params.tile_h, params.tile_w), dtype=_F32, device=dev)
     winner = torch.full(depth.shape, -1, dtype=_I32, device=dev)
-    done = torch.zeros((n_tiles,), dtype=_I32, device=dev)
-    for s in range(int(n.max()) if n_tiles else 0):
-        depth, winner, w = depth_pass(binned[:, s:s + 1], px, py, depth, winner, s, s < n)
+    done = torch.zeros((e * n_tiles,), dtype=_I32, device=dev)
+    for s in range(int(n.max()) if n.numel() else 0):
+        depth, winner, w = depth_pass(flat[:, s:s + 1], px, py, depth, winner, s, s < n)
         done += w
     hit = winner >= 0
     rows = torch.gather(
-        binned, 1, winner.clamp(min=0).reshape(n_tiles, -1, 1).long().expand(-1, -1, N_FIELDS)
+        flat, 1, winner.clamp(min=0).reshape(e * n_tiles, -1, 1).long().expand(-1, -1, N_FIELDS)
     ).reshape(*depth.shape, N_FIELDS)
     attrs = resolve_winners(rows, px, py, hit).permute(0, 3, 1, 2)
     if work is not None:
-        work.copy_(done)
-    return gbuffer_from_planes(untile(depth, params), untile(attrs, params), params)
+        work.copy_(done.reshape(e, n_tiles))
+    return gbuffer_from_planes(untile(depth, params, e), untile(attrs, params, e), params)
+
+
+def rasterize_tiles_reference(binned, params, counts=None, work=None) -> dict:
+    """Plain PyTorch version of the tile kernel on one scene: binned
+    [n_tiles, K, N_FIELDS] + counts [n_tiles] -> G-buffer dict (see
+    rasterize_tiles_batched_reference)."""
+    if counts is None:
+        counts = torch.full((params.n_tiles,), params.max_tris_per_tile, dtype=_I32,
+                            device=binned.device)
+    g = rasterize_tiles_batched_reference(binned[None], counts[None], params,
+                                          None if work is None else work[None])
+    return {name: v[0] for name, v in g.items()}
 
 
 def check_operands(name, expect, device):
@@ -163,6 +185,34 @@ def check_tile(name, params):
         )
 
 
+def launch_tiles(name, binned, counts, params, work):
+    """Checks the operands of the CUDA tile kernel, launches it on the
+    current stream over E envs (binned [E, n_tiles, K, N_FIELDS], counts
+    [E, n_tiles]) and returns the padded (depth [E, Hp, Wp], attrs [E, 6,
+    Hp, Wp]); raises if the launch fails."""
+    e, n_tiles, k = binned.shape[0], params.n_tiles, params.max_tris_per_tile
+    dev = binned.device
+    expect = [(binned, (e, n_tiles, k, N_FIELDS), _F32), (counts, (e, n_tiles), _I32)]
+    if work is not None:
+        expect.append((work, (e, n_tiles), _I32))
+    check_tile(name, params)
+    check_operands(name, expect, dev)
+    hp, wp = params.tiles_y * params.tile_h, params.tiles_x * params.tile_w
+    lib = _build.load()
+    with torch.cuda.device(dev):  # the C side launches on the current device
+        depth = torch.empty((e, hp, wp), dtype=_F32, device=dev)
+        attrs = torch.empty((e, N_ATTR, hp, wp), dtype=_F32, device=dev)
+        err = lib.scx_raster_tiles(
+            binned.data_ptr(), counts.data_ptr(), depth.data_ptr(), attrs.data_ptr(),
+            None if work is None else work.data_ptr(),
+            e, params.tiles_x, params.tiles_y, params.tile_h, params.tile_w, k,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return depth, attrs
+
+
 def rasterize_tiles(binned, params, counts=None, work=None) -> dict:
     """binned [n_tiles, K, N_FIELDS] f32 + counts [n_tiles] i32 (the
     per-tile occupancy, read up to K; None = K) -> G-buffer dict. CPU
@@ -173,29 +223,29 @@ def rasterize_tiles(binned, params, counts=None, work=None) -> dict:
         return rasterize_tiles_reference(binned, params, counts, work)
     if binned.device.type != "cuda":
         raise ValueError(f"rasterize_tiles: unsupported device {binned.device}")
-    n_tiles, k = params.n_tiles, params.max_tris_per_tile
-    dev = binned.device
     if counts is None:
-        counts = torch.full((n_tiles,), k, dtype=_I32, device=dev)
-    expect = [(binned, (n_tiles, k, N_FIELDS), _F32), (counts, (n_tiles,), _I32)]
-    if work is not None:
-        expect.append((work, (n_tiles,), _I32))
-    check_tile("rasterize_tiles", params)
-    check_operands("rasterize_tiles", expect, dev)
-    hp, wp = params.tiles_y * params.tile_h, params.tiles_x * params.tile_w
-    lib = _build.load()
-    with torch.cuda.device(dev):  # the C side launches on the current device
-        depth = torch.empty((hp, wp), dtype=_F32, device=dev)
-        attrs = torch.empty((N_ATTR, hp, wp), dtype=_F32, device=dev)
-        err = lib.scx_raster_tiles(
-            binned.data_ptr(), counts.data_ptr(), depth.data_ptr(), attrs.data_ptr(),
-            None if work is None else work.data_ptr(),
-            params.tiles_x, params.tiles_y, params.tile_h, params.tile_w, k,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"rasterize_tiles kernel launch failed: CUDA error {err}")
+        counts = torch.full((params.n_tiles,), params.max_tris_per_tile, dtype=_I32,
+                            device=binned.device)
+    depth, attrs = launch_tiles("rasterize_tiles", binned[None], counts[None], params,
+                                None if work is None else work[None])
     RASTER_TILES_LAUNCHES += 1
+    return gbuffer_from_planes(depth[0], attrs[0], params)
+
+
+def rasterize_tiles_batched(binned, counts, params, work=None) -> dict:
+    """The fleet's tile raster (replaces scx/ops/raster.py::
+    rasterize_tiles_batched): binned [E, n_tiles, K, N_FIELDS] f32 + counts
+    [E, n_tiles] i32 -> G-buffer dict with a leading env axis. CPU tensors
+    take rasterize_tiles_batched_reference; CUDA tensors launch the kernel
+    of csrc/raster.cu (one CTA per env and tile) on the current stream, or
+    raise."""
+    global RASTER_TILES_BATCHED_LAUNCHES
+    if binned.device.type == "cpu":
+        return rasterize_tiles_batched_reference(binned, counts, params, work)
+    if binned.device.type != "cuda":
+        raise ValueError(f"rasterize_tiles_batched: unsupported device {binned.device}")
+    depth, attrs = launch_tiles("rasterize_tiles_batched", binned, counts, params, work)
+    RASTER_TILES_BATCHED_LAUNCHES += 1
     return gbuffer_from_planes(depth, attrs, params)
 
 

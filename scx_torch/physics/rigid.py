@@ -147,3 +147,17 @@ def make_bodies(
         sleep_timer=arg(sleep_timer, full(0.0), f32),
         trigger=arg(trigger, full(False, torch.bool), torch.bool),
     )
+
+
+def inv_inertia_world(bodies: RigidBodies) -> torch.Tensor:
+    """World-frame inverse inertia R diag(I^-1) R^T, [..., N, 3, 3]; each
+    entry the 3-term sum in index order."""
+    r = m3.quat_to_mat3(bodies.quat)
+    ri = r * bodies.inv_inertia[..., None, :]
+    p = [ri[..., :, j, None] * r[..., None, :, j] for j in range(3)]
+    return (p[0] + p[1]) + p[2]
+
+
+def shape_centers(bodies: RigidBodies) -> torch.Tensor:
+    """World collider centers: pos + R @ shape_offset, [..., N, 3]."""
+    return bodies.pos + m3.quat_rotate(bodies.quat, bodies.shape_offset)

@@ -93,10 +93,11 @@ class RasterParams:
 
 
 def _scatter_count(idx: torch.Tensor, n: int) -> torch.Tensor:
-    """[n] i32 counts of idx, dropping idx >= n (`.at[idx].add(1, mode="drop")`)."""
-    out = torch.zeros(n + 1, dtype=_I32, device=idx.device)
-    out.scatter_add_(0, idx.clamp(max=n).long(), torch.ones_like(idx, dtype=_I32))
-    return out[:n]
+    """[..., n] i32 counts of idx [..., D] along the last axis, dropping
+    idx >= n (`.at[idx].add(1, mode="drop")`)."""
+    out = torch.zeros(idx.shape[:-1] + (n + 1,), dtype=_I32, device=idx.device)
+    out.scatter_add_(-1, idx.clamp(max=n).long(), torch.ones_like(idx, dtype=_I32))
+    return out[..., :n]
 
 
 def _interleave_bits10(x):
@@ -134,13 +135,15 @@ def sort_draws_spatial(draws: DrawList, view_proj, params) -> DrawList:
 
 
 def _near_clip_cols(cw, pos_cols, attr_cols, live, extra_cap: int, eps: float):
-    """Near-plane (w > eps) polygon clipping on [T] columns.
+    """Near-plane (w > eps) polygon clipping on [..., T] columns (one scene,
+    or one row per env).
 
     A crossing triangle's slot takes its first clipped triangle; a quad's
     second half goes to the extras, in the order of the crossing triangles
     (k-th one-out triangle -> extra slot k). Attributes interpolate in clip
     space. Returns (tri1, live1, srcs, have, extras)."""
-    t = live.shape[0]
+    t = live.shape[-1]
+    lead = live.shape[:-1]
     dev = live.device
     inside = [w > eps for w in cw]
     n_in = sum(i.to(_I32) for i in inside)
@@ -192,18 +195,18 @@ def _near_clip_cols(cw, pos_cols, attr_cols, live, extra_cap: int, eps: float):
     live1 = keep | one_out | two_out
 
     # quad second halves: the k-th one_out tri writes its index to slot k
-    cum = torch.cumsum(one_out.to(_I32), 0, dtype=_I32)
+    cum = torch.cumsum(one_out.to(_I32), -1, dtype=_I32)
     rank = torch.where(one_out, cum - 1, extra_cap)
-    srcs = torch.zeros(extra_cap + 1, dtype=torch.int64, device=dev)
-    srcs.scatter_(0, torch.clamp(rank, max=extra_cap).long(),
-                  torch.arange(t, dtype=torch.int64, device=dev))
-    srcs = srcs[:extra_cap]
-    have = torch.arange(1, extra_cap + 1, dtype=_I32, device=dev) <= cum[-1]
+    srcs = torch.zeros(lead + (extra_cap + 1,), dtype=torch.int64, device=dev)
+    srcs.scatter_(-1, torch.clamp(rank, max=extra_cap).long(),
+                  torch.arange(t, dtype=torch.int64, device=dev).expand(lead + (t,)))
+    srcs = srcs[..., :extra_cap]
+    have = torch.arange(1, extra_cap + 1, dtype=_I32, device=dev) <= cum[..., -1:]
     tri2 = [i01, u2, i20]
     packed = torch.stack([col for v in range(3) for col in tri2[v]], dim=-1)
-    rows = packed[srcs]  # [extra_cap, 3*nc]
+    rows = torch.gather(packed, -2, srcs[..., None].expand(lead + (extra_cap, 3 * nc)))
     extras = [
-        [torch.where(have, rows[:, v * nc + c], 0.0) for c in range(nc)]
+        [torch.where(have, rows[..., v * nc + c], 0.0) for c in range(nc)]
         for v in range(3)
     ]
     return tri1, live1, srcs, have, extras
@@ -211,43 +214,47 @@ def _near_clip_cols(cw, pos_cols, attr_cols, live, extra_cap: int, eps: float):
 
 def setup_triangles(draws: DrawList, pool: MeshPool, view_proj, params: RasterParams):
     """The [T, N_FIELDS] screen-space plane-setup buffer of a draw list:
-    (setup, aabb [T,4], valid [T]). Tensors stay on view_proj's device."""
+    (setup, aabb [T,4], valid [T]). A fleet's draw lists ([E, D] columns,
+    view_proj [E, 4, 4]) give [E, T, ...]; cumsums and scatters run along
+    the last axis, per env. Tensors stay on view_proj's device."""
     pad = params.effective_clip_extra
     usable = params.max_tris - pad
-    d = draws.valid.shape[0]
+    lead = draws.valid.shape[:-1]
+    d = draws.valid.shape[-1]
     dev = view_proj.device
 
     def grow(col, fill=0.0):
-        return torch.cat([col, torch.full((pad,), fill, dtype=col.dtype, device=dev)])
+        return torch.cat([col, torch.full(lead + (pad,), fill, dtype=col.dtype, device=dev)], -1)
 
     mesh_id = draws.mesh_id.long()
     tri_counts = torch.where(draws.valid, pool.mesh_tri_count[mesh_id], 0)
-    cum = torch.cumsum(tri_counts, 0, dtype=_I32)
-    total = cum[-1]
+    cum = torch.cumsum(tri_counts, -1, dtype=_I32)
+    total = cum[..., -1:]
     starts = cum - tri_counts
     e_idx = torch.arange(usable, dtype=_I32, device=dev)
     marks = _scatter_count(starts, usable)
-    draw_idx = torch.clamp(torch.cumsum(marks, 0, dtype=_I32) - 1, 0, d - 1)
+    draw_idx = torch.clamp(torch.cumsum(marks, -1, dtype=_I32) - 1, 0, d - 1)
 
-    mvp = mat4_mul(view_proj, draws.model)  # [D,4,4]
+    mvp = mat4_mul(view_proj.unsqueeze(-3), draws.model)  # [..., D, 4, 4]
     per_draw = torch.cat(
         [
-            starts.to(_F32)[:, None],
-            pool.mesh_first_tri[mesh_id].to(_F32)[:, None],
-            draws.material_id.to(_F32)[:, None],
-            mvp.reshape(d, 16),
+            starts.to(_F32)[..., None],
+            pool.mesh_first_tri[mesh_id].to(_F32)[..., None],
+            draws.material_id.to(_F32)[..., None],
+            mvp.reshape(lead + (d, 16)),
         ],
         dim=-1,
     )
-    drows = per_draw[draw_idx]                           # [T,19]
-    local = e_idx - drows[:, 0].to(_I32)
-    tri_pool = drows[:, 1].to(_I32) + local
+    drows = torch.gather(per_draw, -2, draw_idx.long()[..., None].expand(
+        lead + (usable, 19)))                            # [..., T, 19]
+    local = e_idx - drows[..., 0].to(_I32)
+    tri_pool = drows[..., 1].to(_I32) + local
     live = e_idx < total
 
     n_pool = pool.tri_vert_rows.shape[0]
-    trows = pool.tri_vert_rows[torch.clamp(tri_pool, 0, n_pool - 1)]  # [T,24]
-    vcol = [[trows[:, v * 8 + f] for f in range(8)] for v in range(3)]
-    mcol = [[drows[:, 3 + i * 4 + j] for j in range(4)] for i in range(4)]
+    trows = pool.tri_vert_rows[torch.clamp(tri_pool, 0, n_pool - 1).long()]  # [..., T, 24]
+    vcol = [[trows[..., v * 8 + f] for f in range(8)] for v in range(3)]
+    mcol = [[drows[..., 3 + i * 4 + j] for j in range(4)] for i in range(4)]
 
     def clip_coord(i, v):
         p = vcol[v]
@@ -258,8 +265,8 @@ def setup_triangles(draws: DrawList, pool: MeshPool, view_proj, params: RasterPa
     cz = [grow(clip_coord(2, v)) for v in range(3)]
     cw = [grow(clip_coord(3, v), fill=-1.0) for v in range(3)]
     attrs = [[grow(vcol[v][f]) for f in range(3, 8)] for v in range(3)]
-    live = torch.cat([live, torch.zeros((pad,), dtype=torch.bool, device=dev)])
-    mat_ids = grow(drows[:, 2]).to(draws.material_id.dtype)
+    live = torch.cat([live, torch.zeros(lead + (pad,), dtype=torch.bool, device=dev)], -1)
+    mat_ids = grow(drows[..., 2]).to(draws.material_id.dtype)
 
     return setup_from_clip_cols(cx, cy, cz, cw, attrs, live, mat_ids, params)
 
@@ -268,8 +275,9 @@ def setup_from_clip_cols(cx, cy, cz, cw, attrs, live, mat_ids, params):
     """Clip-space columns -> (setup [T, N_FIELDS], aabb [T,4], valid [T]).
 
     cx/cy/cz/cw: [3][T] per-vertex columns, attrs: [3][5][T] r,g,b,u,v,
-    live: [T] bool, mat_ids: [T] i32. The columns already hold the
-    effective_clip_extra tail reserve (zeros, cw -1)."""
+    live: [T] bool, mat_ids: [T] i32 (or [E, T] columns of a fleet, giving
+    [E, T, ...]). The columns already hold the effective_clip_extra tail
+    reserve (zeros, cw -1)."""
     pad = params.effective_clip_extra
     t = params.max_tris
 
@@ -283,11 +291,10 @@ def setup_from_clip_cols(cx, cy, cz, cw, attrs, live, mat_ids, params):
     if pad > 0:
         for v in range(3):
             for c in range(len(tri1[v])):
-                tri1[v][c] = torch.cat([tri1[v][c][: t - pad], extras[v][c]])
-        live = torch.cat([live[: t - pad], ex_have])
-        mat_ids = torch.cat(
-            [mat_ids[: t - pad], torch.where(ex_have, mat_ids[ex_src], 0).to(mat_ids.dtype)]
-        )
+                tri1[v][c] = torch.cat([tri1[v][c][..., : t - pad], extras[v][c]], -1)
+        live = torch.cat([live[..., : t - pad], ex_have], -1)
+        ex_mat = torch.where(ex_have, torch.gather(mat_ids, -1, ex_src), 0).to(mat_ids.dtype)
+        mat_ids = torch.cat([mat_ids[..., : t - pad], ex_mat], -1)
 
     # columns are (x, y, z, w, r, g, b, u, v)
     cx = [tri1[v][0] for v in range(3)]
@@ -346,7 +353,7 @@ def setup_from_clip_cols(cx, cy, cz, cw, attrs, live, mat_ids, params):
     mat = mat_ids.to(_F32)
     zero = torch.zeros_like(mat)
     planes += [mat, valid.to(_F32), zmin_c, zero, zero]
-    setup = torch.stack(planes, dim=1)
+    setup = torch.stack(planes, dim=-1)
     aabb = torch.stack([xmin, ymin, xmax, ymax], dim=-1)
     return setup, aabb, valid
 
@@ -357,37 +364,53 @@ def _tile_range(lo, hi, size: int, n: int):
 
 
 def tile_overlap(aabb, valid, params: RasterParams):
-    """[n_tiles, X] bool: which of the X screen boxes overlap each tile."""
+    """[..., n_tiles, X] bool: which of the X screen boxes (aabb [..., X,
+    4], valid [..., X]) overlap each tile."""
     ntx, nty = params.tiles_x, params.tiles_y
-    tx0, tx1 = _tile_range(aabb[:, 0], aabb[:, 2], params.tile_w, ntx)
-    ty0, ty1 = _tile_range(aabb[:, 1], aabb[:, 3], params.tile_h, nty)
+    tx0, tx1 = _tile_range(aabb[..., None, :, 0], aabb[..., None, :, 2], params.tile_w, ntx)
+    ty0, ty1 = _tile_range(aabb[..., None, :, 1], aabb[..., None, :, 3], params.tile_h, nty)
     tiles = torch.arange(params.n_tiles, dtype=_I32, device=aabb.device)
     t_y = (tiles // ntx)[:, None]
     t_x = (tiles % ntx)[:, None]
-    return valid[None, :] & (t_x >= tx0) & (t_x <= tx1) & (t_y >= ty0) & (t_y <= ty1)
+    return (valid[..., None, :] & (t_x >= tx0) & (t_x <= tx1) & (t_y >= ty0)
+            & (t_y <= ty1))
 
 
 def bin_triangles(setup, aabb, valid, params: RasterParams):
-    """Per-tile triangle lists in triangle (= draw) order.
+    """Per-tile triangle lists in triangle (= draw) order, of one scene
+    (setup [T, F]) or of every env (setup [E, T, F]).
 
-    Returns (binned [n_tiles, K, N_FIELDS], counts [n_tiles] i32); counts
-    are raw (they may exceed K: the overflow statistic). The k-th triangle
-    of a tile is the one whose running overlap count reaches k+1."""
+    Returns (binned [..., n_tiles, K, N_FIELDS], counts [..., n_tiles] i32);
+    counts are raw (they may exceed K: the overflow statistic). The k-th
+    triangle of a tile is the one whose running overlap count reaches
+    k+1: one scatter along the triangle axis puts it in slot k."""
     n_tiles = params.n_tiles
     k = params.max_tris_per_tile
     t = params.max_tris
+    lead = valid.shape[:-1]
     dev = setup.device
-    overlap = tile_overlap(aabb, valid, params)
-    rank = torch.cumsum(overlap.to(_I32), dim=1, dtype=_I32)  # [tiles, T]
-    counts = rank[:, -1].contiguous()
+    overlap = tile_overlap(aabb, valid, params)                  # [..., tiles, T]
+    rank = torch.cumsum(overlap.to(_I32), dim=-1, dtype=_I32)
+    counts = rank[..., -1].contiguous()
     pos = torch.clamp(torch.where(overlap, rank - 1, k), max=k)  # k: dump slot
-    tri_ids = torch.zeros((n_tiles, k + 1), dtype=torch.int64, device=dev)
-    tri_ids.scatter_(1, pos.long(), torch.arange(t, device=dev).expand(n_tiles, t))
-    tri_ids = tri_ids[:, :k]
-    in_range = torch.arange(k, device=dev)[None, :] < counts[:, None]
-    binned = setup[tri_ids]  # [tiles, K, F]
-    binned[:, :, F_VALID] = torch.where(in_range, binned[:, :, F_VALID], 0.0)
+    tri_ids = torch.zeros(lead + (n_tiles, k + 1), dtype=torch.int64, device=dev)
+    tri_ids.scatter_(-1, pos.long(), torch.arange(t, device=dev).expand(lead + (n_tiles, t)))
+    tri_ids = tri_ids[..., :k].reshape(lead + (n_tiles * k, 1))
+    in_range = torch.arange(k, device=dev) < counts[..., None]
+    binned = torch.gather(setup, -2, tri_ids.expand(lead + (n_tiles * k, N_FIELDS)))
+    binned = binned.reshape(lead + (n_tiles, k, N_FIELDS))
+    binned[..., F_VALID] = torch.where(in_range, binned[..., F_VALID], 0.0)
     return binned, counts
+
+
+def bin_triangles_batched(setup, aabb, valid, params: RasterParams):
+    """Env-batched tile binning (scx.render.pipeline.bin_triangles_batched):
+    setup [E, T, F], aabb [E, T, 4], valid [E, T] -> (binned [E, n_tiles, K,
+    F], counts [E, n_tiles]). scx recovers each slot's triangle by block
+    rank, a TPU workaround for its slow batched scatter; here the scatter
+    of bin_triangles runs per env along the triangle axis, and gives the
+    same triangle ids."""
+    return bin_triangles(setup, aabb, valid, params)
 
 
 @dataclass
@@ -619,3 +642,37 @@ def _raster_and_shade(setup, aabb, valid, params, materials, textures, plain=Fal
         "cluster_drop": cluster_drop,
     }
     return rgb, gbuffer, stats
+
+
+def raster_gbuffer_batched(setup, aabb, valid, params: RasterParams, *, plain: bool = False):
+    """Env-batched bin + rasterize -> (gbuffer, stats); setup [E, T, F].
+
+    Cluster path (params.use_clusters): per-env meshlet bounds, compaction
+    and binning feed the env-batched cluster kernel; otherwise per-tile
+    triangle lists feed the env-batched tile kernel. `plain=True` takes
+    the kernels' plain PyTorch versions (for comparisons)."""
+    from scx_torch.ops import raster as raster_ops
+    from scx_torch.ops import raster_clusters as rc
+
+    if params.use_clusters:
+        kc = params.max_clusters_per_tile
+        cl_ids, cl_counts, cl_zmin, dropped = rc.frame_cluster_lists(setup, aabb, valid, params)
+        raster = (rc.rasterize_clusters_batched_reference if plain
+                  else rc.rasterize_clusters_batched)
+        gbuffer = raster(setup, cl_ids, cl_counts, params, kc, cl_zmin=cl_zmin)
+        occupancy, cap = cl_counts, kc
+        cluster_drop = dropped.sum()
+    else:
+        binned, counts = bin_triangles_batched(setup, aabb, valid, params)
+        raster = (raster_ops.rasterize_tiles_batched_reference if plain
+                  else raster_ops.rasterize_tiles_batched)
+        gbuffer = raster(binned, counts, params)
+        occupancy, cap = counts, params.max_tris_per_tile
+        cluster_drop = torch.zeros((), dtype=_I32, device=setup.device)
+    stats = {
+        "tris_in": valid.to(_I32).sum(),
+        "max_tile_occupancy": occupancy.max(),
+        "tile_overflow": (occupancy >= cap).to(_I32).sum(),
+        "cluster_drop": cluster_drop,
+    }
+    return gbuffer, stats

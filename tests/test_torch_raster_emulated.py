@@ -5,9 +5,10 @@ entry points) is plain C++ apart from a few CUDA keywords. Built with g++
 and a small shim (one host thread per CUDA thread, std::barrier for
 __syncthreads, one block at a time), it runs here without a GPU, so the
 kernels' logic is checked on every run; on the card
-tests/test_torch_cuda_raster.py checks the nvcc build. Both kernels must
-give the G-buffer of their plain versions bit for bit, and the same count
-of triangles evaluated per tile (which checks the hierarchical-z exit).
+tests/test_torch_cuda_raster.py and test_torch_cuda_rlenv.py check the
+nvcc build. Both kernels, single-scene and env-batched, must give the
+G-buffer of their plain versions bit for bit, and the same count of
+triangles evaluated per tile (which checks the hierarchical-z exit).
 """
 
 import ctypes
@@ -22,7 +23,7 @@ from scx_torch.ops import raster as tr
 from scx_torch.ops import raster_clusters as trc
 from scx_torch.render import pipeline as tp
 
-from torch_render_scenes import city_setup, cluster_lists
+from torch_render_scenes import city_setup, city_setup_batched, cluster_lists
 
 SRC = Path(tr.__file__).resolve().parent / "csrc" / "raster.cu"
 
@@ -61,11 +62,11 @@ inline void __trap() { std::abort(); }
 
 template <bool C>
 static void emu_run(const float* rows, const int* ids, const int* counts, const float* zmin,
-                    float* depth, float* attrs, int* work, int n_clusters, int ntx, int nty,
-                    int th, int tw, int k) {
+                    float* depth, float* attrs, int* work, int n_envs, int n_clusters, int ntx,
+                    int nty, int th, int tw, int k, int quant_z) {
   const int nthr = threads_for(th, tw);
   blockDim.x = nthr;
-  for (int b = 0; b < ntx * nty; ++b) {
+  for (int b = 0; b < n_envs * ntx * nty; ++b) {
     blockIdx.x = b;
     std::barrier<> bar(nthr);
     emu_bar = &bar;
@@ -73,8 +74,8 @@ static void emu_run(const float* rows, const int* ids, const int* counts, const 
     for (int t = 0; t < nthr; ++t)
       ts.emplace_back([&, t] {
         threadIdx.x = t;
-        raster_kernel<C>(rows, ids, counts, zmin, depth, attrs, work, n_clusters, ntx, th, tw,
-                         nty * th, ntx * tw, k);
+        raster_kernel<C>(rows, ids, counts, zmin, depth, attrs, work, n_clusters, ntx * nty,
+                         ntx, th, tw, nty * th, ntx * tw, k, quant_z);
       });
     for (auto& th_ : ts) th_.join();
   }
@@ -82,16 +83,19 @@ static void emu_run(const float* rows, const int* ids, const int* counts, const 
 
 extern "C" int emu_clusters(const float* setup, const int* ids, const int* counts,
                             const float* zmin, float* depth, float* attrs, int* work,
-                            int n_clusters, int ntx, int nty, int th, int tw, int kc) {
+                            int n_envs, int n_clusters, int ntx, int nty, int th, int tw,
+                            int kc, int quant_z) {
   if (threads_for(th, tw) > MAX_THREADS) return 1;
-  emu_run<true>(setup, ids, counts, zmin, depth, attrs, work, n_clusters, ntx, nty, th, tw, kc);
+  emu_run<true>(setup, ids, counts, zmin, depth, attrs, work, n_envs, n_clusters, ntx, nty,
+                th, tw, kc, quant_z);
   return 0;
 }
 
 extern "C" int emu_tiles(const float* binned, const int* counts, float* depth, float* attrs,
-                         int* work, int ntx, int nty, int th, int tw, int k) {
+                         int* work, int n_envs, int ntx, int nty, int th, int tw, int k) {
   if (threads_for(th, tw) > MAX_THREADS) return 1;
-  emu_run<false>(binned, nullptr, counts, nullptr, depth, attrs, work, 0, ntx, nty, th, tw, k);
+  emu_run<false>(binned, nullptr, counts, nullptr, depth, attrs, work, n_envs, 0, ntx, nty,
+                 th, tw, k, 0);
   return 0;
 }
 """
@@ -114,9 +118,9 @@ def emulated(tmp_path_factory):
     )
     so = ctypes.CDLL(str(lib))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    so.emu_clusters.argtypes = [vp] * 7 + [i32] * 6
+    so.emu_clusters.argtypes = [vp] * 7 + [i32] * 8
     so.emu_clusters.restype = i32
-    so.emu_tiles.argtypes = [vp] * 5 + [i32] * 5
+    so.emu_tiles.argtypes = [vp] * 5 + [i32] * 6
     so.emu_tiles.restype = i32
     return so
 
@@ -148,8 +152,8 @@ def test_cluster_kernel_source_matches_plain(emulated, tile_h, tile_w, zsort):
     depth, attrs, work = _outputs(params)
     rc = emulated.emu_clusters(
         setup.data_ptr(), ids.data_ptr(), counts.data_ptr(), cl_zmin.data_ptr(),
-        depth.data_ptr(), attrs.data_ptr(), work.data_ptr(), params.max_tris // trc.CLUSTER,
-        params.tiles_x, params.tiles_y, params.tile_h, params.tile_w, kc)
+        depth.data_ptr(), attrs.data_ptr(), work.data_ptr(), 1, params.max_tris // trc.CLUSTER,
+        params.tiles_x, params.tiles_y, params.tile_h, params.tile_w, kc, 0)
     assert rc == 0
     _assert_same(depth, attrs, work, params, ref, ref_work)
     if zsort:  # the hierarchical-z exit cut some tile's list short
@@ -168,8 +172,40 @@ def test_tile_kernel_source_matches_plain(emulated, tile_h, tile_w):
     binned = binned.contiguous()
     rc = emulated.emu_tiles(
         binned.data_ptr(), counts.data_ptr(), depth.data_ptr(), attrs.data_ptr(),
-        work.data_ptr(), params.tiles_x, params.tiles_y, params.tile_h, params.tile_w,
+        work.data_ptr(), 1, params.tiles_x, params.tiles_y, params.tile_h, params.tile_w,
         params.max_tris_per_tile)
     assert rc == 0
     _assert_same(depth, attrs, work, params, ref, ref_work)
     assert (counts > 32).any()  # a list longer than one staged block
+
+
+@pytest.mark.parametrize("kernel", ["tiles", "clusters"])
+def test_batched_kernel_source_matches_plain(emulated, kernel):
+    """The env-batched launches (one block per env and tile) of both
+    kernels on 3 envs; the cluster kernel's exit reads the quantized zmin."""
+    envs = 3
+    params, setup, aabb, valid = city_setup_batched(envs)[:4]
+    hp, wp = params.tiles_y * params.tile_h, params.tiles_x * params.tile_w
+    depth = torch.full((envs, hp, wp), -7.0)
+    attrs = torch.full((envs, tr.N_ATTR, hp, wp), -7.0)
+    work = torch.full((envs, params.n_tiles), -7, dtype=torch.int32)
+    ref_work = torch.zeros_like(work)
+    geo = (params.tiles_x, params.tiles_y, params.tile_h, params.tile_w)
+    if kernel == "clusters":
+        kc = params.max_clusters_per_tile
+        ids, counts, zmin, _ = trc.frame_cluster_lists(setup, aabb, valid, params)
+        ref = trc.rasterize_clusters_batched_reference(setup, ids, counts, params, kc, zmin,
+                                                       ref_work)
+        rc = emulated.emu_clusters(
+            setup.data_ptr(), ids.data_ptr(), counts.data_ptr(), zmin.data_ptr(),
+            depth.data_ptr(), attrs.data_ptr(), work.data_ptr(), envs,
+            params.max_tris // trc.CLUSTER, *geo, kc, 1)
+    else:
+        binned, counts = tp.bin_triangles_batched(setup, aabb, valid, params)
+        ref = tr.rasterize_tiles_batched_reference(binned, counts, params, ref_work)
+        binned = binned.contiguous()
+        rc = emulated.emu_tiles(binned.data_ptr(), counts.data_ptr(), depth.data_ptr(),
+                                attrs.data_ptr(), work.data_ptr(), envs, *geo,
+                                params.max_tris_per_tile)
+    assert rc == 0
+    _assert_same(depth, attrs, work, params, ref, ref_work)
