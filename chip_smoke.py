@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
-Run from the root of the repository. It drives the port's three main
-paths -- the batched physics fleet step (1024 scenes x 64 bodies,
+Run from the root of the repository. It drives the port's main paths --
+the batched physics fleet step (1024 scenes x 64 bodies,
 max_pairs=128, 6 solver iterations, box-only narrowphase), one rendered
 frame of the city chunk at 1280x720 (benchmarks/bench_city_720p.py's
 frame, ~78.6k triangles, 64x128 tiles, 256 cluster slots per tile,
@@ -10,8 +10,9 @@ mip-mapped texture, static bake) and the RL fleet (CityRLEnv in the two
 configurations of scx_torch.app.rlenv.FLEETS: bench_rlenv.py's 4096 envs
 x capacity 160 through the tile kernel, and bench_rlenv_glb.py's 1024
 envs x capacity 512 of GLB buildings through the cluster kernel, both
-128x128 RGB-D with the static bake) -- in phases and exits non-zero at
-the first failure:
+128x128 RGB-D with the static bake), the same physics step in stages
+(two kernels and the solve pack between them) and PPO training on the tile
+fleet -- in phases and exits non-zero at the first failure:
 
   1. device: a CUDA device must be present; prints the card's name and
      power limit as nvidia-smi reports them;
@@ -25,6 +26,15 @@ the first failure:
      finite; then 20 steps of the plain path for its rate, whose
      positions 99% of the envs must match within 1e-5 after 20 kernel-path
      steps;
+  4b. staged kernels vs plain: the fleet SAT and the fleet solve kernels
+     against their plain PyTorch versions on the card, at the main shape
+     after 3 warm steps and on the mixed 64 x 24 fleet (SAT: validity may
+     flip only at graze depth, floats within 5e-6 where both are valid,
+     candidate ids there and friction / restitution / trigger exact;
+     solve: within 2e-5 from the same pack); then the staged path: 240
+     steps of step_planar_staged, one launch of each kernel per step, no
+     pair overflow, finite state, and after 20 steps 99% of the envs
+     within 1e-5 of the fused path's positions;
   5. raster kernels vs plain: (a) rasterize_clusters on the city frame's
      own setup and cluster lists, (b) rasterize_tiles at 1280x720 on three
      cubes and a ground slab (no tile list overflows), each held to scx's
@@ -49,7 +59,17 @@ the first failure:
      and one middle kernel, with nan_rollbacks and pair_overflow 0 and
      finite, covered [E, 128, 128, 4] observations; then one unbaked step
      of the tile fleet, whose observation through the kernel and through
-     the plain rasterizer must meet the contract above.
+     the plain rasterizer must meet the contract above;
+  9. training: make_ppo_train_step on the tile fleet (4096 envs, conv
+     actor-critic, length 16, PPOConfig defaults), 1 warm and 3 timed train
+     steps: finite metrics, parameters moved, nan_rollbacks and
+     pair_overflow 0, one middle launch per env step and one batched raster
+     launch per observation (length + 1 per train step); prints
+     ppo_env_steps_per_sec (envs x length / seconds, update included); the
+     same with obs_mode="state", n_agents=4 and the state MLP: no raster
+     launch, reward [E, 4]; then one rgbd n_agents=2 step of a 512-env tile
+     fleet, whose observation through the kernel meets phase 5's contract
+     against the plain rasterizer.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Nothing of JAX is imported.
@@ -57,7 +77,9 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -65,6 +87,9 @@ import time
 ENVS, BODIES, STEPS, PLAIN_STEPS = 1024, 64, 240, 20
 FRAMES, WARM_FRAMES, PLAIN_FRAMES = 30, 3, 3
 RL_LEN = 10  # steps per RL rollout and per timed run of step()
+TRAIN_LEN, TRAIN_STEPS = 16, 3  # rollout horizon and timed train steps of phase 9
+# the staged kernels' contracts (tests/test_physics_planar.py:298-384)
+SAT_TOL, SOLVE_TOL = 5e-6, 2e-5
 # the contract of scx's fused-kernel test (tests/test_physics_planar.py):
 # validity may differ only at graze depth; cand exact where both are
 # valid; trig exact; vwc within 5e-5; lam within 5e-4
@@ -150,6 +175,55 @@ def check_middle(tag, b, params, steps):
     return ops, max(err_vwc, err_lam)
 
 
+def check_staged(tag, b, params, steps):
+    """SAT and solve kernels vs their plain versions on the card after
+    `steps` warm staged steps. Returns (SAT operands, solve operands, the
+    SAT's and the solve's max abs error)."""
+    import torch
+
+    from scx_torch.physics import planar as pp
+
+    kinds = params.shape_kinds
+    cache = pp.empty_planar_cache(b.shape.shape[0], params.max_pairs, device=b.shape.device)
+    for _ in range(steps):
+        b, cache, _ = pp.step_planar_staged(b, params, cache)
+    b = pp.planar_integrate_velocities(b, params.dt, params.gravity)
+    ia, ib, pair_valid, _ = pp.planar_broadphase(b, params.max_pairs)
+    sat_ops = pp._sat_inputs(b, ia, ib, pair_valid)
+    ker = [x.cpu() for x in pp.sat_fleet(*sat_ops, kinds)]
+    ref = [x.cpu() for x in pp.sat_reference(*sat_ops, kinds)]
+    flips = ker[7] != ref[7]
+    if flips.any() and ref[6].abs()[flips].max().item() >= GRAZE:
+        fail(f"{tag}: SAT validity differs at depth {ref[6].abs()[flips].max().item()}")
+    both = (ker[7] > 0.5) & (ref[7] > 0.5)
+    err_sat = max((k[both] - r[both]).abs().max().item() for k, r in zip(ker[:7], ref[:7]))
+    pair_mismatch = sum(int((k != r).sum()) for k, r in zip(ker[9:], ref[9:]))
+    cand_mismatch = int((ker[8][both] != ref[8][both]).sum())
+
+    con = pp.planar_contacts(b, ia, ib, pair_valid, kinds)
+    lam0 = pp.planar_gather_warm(cache, ia, ib, pair_valid, con.cand)
+    jac, vw0, _ = pp.solve_pack(b, con, params, ia, ib, lam0)
+    solve_ops = (jac, ia, ib, vw0)
+    vw_k, lam_k = (x.cpu() for x in pp.solve_fleet(*solve_ops, params.iterations))
+    vw_r, lam_r = (x.cpu() for x in pp.solve_reference(*solve_ops, params.iterations))
+    err_solve = max((vw_k - vw_r).abs().max().item(), (lam_k - lam_r).abs().max().item())
+    print(json.dumps({
+        "check": f"staged {tag}", "envs": b.shape.shape[0], "bodies": b.n,
+        "pairs": params.max_pairs, "kinds": list(kinds), "valid_contacts": int(both.sum()),
+        "sat_validity_flips": int(flips.sum()), "sat_cand_mismatch": cand_mismatch,
+        "sat_pair_plane_mismatch": pair_mismatch, "sat_max_abs_err": err_sat,
+        "solve_max_abs_err": err_solve, "warm_impulse_sum": float(lam_r.abs().sum()),
+    }), flush=True)
+    if int(both.sum()) == 0 or float(lam_r.abs().sum()) == 0.0:
+        fail(f"staged {tag}: no live contacts or impulses to compare")
+    if cand_mismatch or pair_mismatch:
+        fail(f"staged {tag}: the SAT's discrete outputs differ")
+    if not (err_sat <= SAT_TOL and err_solve <= SOLVE_TOL):
+        fail(f"staged {tag}: SAT err {err_sat} (tol {SAT_TOL}), solve err {err_solve} "
+             f"(tol {SOLVE_TOL})")
+    return sat_ops, solve_ops, err_sat, err_solve
+
+
 def reset_counts():
     """Sets every kernel wrapper's launch count to 0."""
     from scx_torch.ops import raster as tr
@@ -157,6 +231,8 @@ def reset_counts():
     from scx_torch.physics import planar as pp
 
     pp.MIDDLE_KERNEL_LAUNCHES = 0
+    pp.SAT_KERNEL_LAUNCHES = 0
+    pp.SOLVE_KERNEL_LAUNCHES = 0
     trc.RASTER_CLUSTERS_LAUNCHES = 0
     tr.RASTER_TILES_LAUNCHES = 0
     trc.RASTER_CLUSTERS_BATCHED_LAUNCHES = 0
@@ -325,18 +401,18 @@ def main():
     check_middle("mixed", fleet.build_mixed_fleet(64, 24, 5, dev), mixed, 3)
 
     # ---- 4. the physics path ----------------------------------------------
-    def run(middle_fn, steps):
+    def run(step_fn, steps):
         b = fleet.build_pile_fleet(ENVS, BODIES, dev)
         cache = pp.empty_planar_cache(ENVS, params.max_pairs, device=dev)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        b, cache, ovf = fleet.rollout(b, cache, params, steps, middle_fn=middle_fn)
+        b, cache, ovf = fleet.rollout(b, cache, params, steps, step_fn=step_fn)
         torch.cuda.synchronize()
         ovf = int(ovf.item())
         return b, ovf, time.perf_counter() - t
 
     reset_counts()
-    b, ovf, secs = run(pp.middle, STEPS)
+    b, ovf, secs = run(pp.step_planar_cached, STEPS)
     launches = pp.MIDDLE_KERNEL_LAUNCHES
     finite = all(
         torch.isfinite(x).all().item()
@@ -351,13 +427,14 @@ def main():
         fail(f"pair overflow {ovf} in the main path")
     if not finite or tuple(b.pos.y.shape) != (ENVS, BODIES):
         fail("the main path's state is not finite or has the wrong shape")
-    b_plain, _, secs_plain = run(pp.middle_reference, PLAIN_STEPS)
+    b_plain, _, secs_plain = run(
+        functools.partial(pp.step_planar_cached, middle_fn=pp.middle_reference), PLAIN_STEPS)
     print(json.dumps({"metric": "physics_env_steps_per_sec", "path": "plain-torch",
                       "value": ENVS * PLAIN_STEPS / secs_plain, "envs": ENVS,
                       "bodies": BODIES, "steps": PLAIN_STEPS, "seconds": secs_plain,
                       "card": card}), flush=True)
     # the two paths' trajectories from the same fleet
-    b_kern, _, _ = run(pp.middle, PLAIN_STEPS)
+    b_kern, _, _ = run(pp.step_planar_cached, PLAIN_STEPS)
     dev_env = torch.stack([(x - y).abs() for x, y in zip(b_kern.pos, b_plain.pos)]).amax((0, 2))
     print(json.dumps({"check": "trajectory", "steps": PLAIN_STEPS,
                       "pos_max_abs_diff": dev_env.max().item(),
@@ -367,6 +444,68 @@ def main():
     # rare graze flip, which moves one env's trajectory
     if (dev_env <= 1e-5).float().mean().item() < 0.99:
         fail("the kernel path's trajectory departs from the plain path's")
+
+    # ---- 4b. the staged kernels vs plain, and the staged path ---------------
+    sat_ops, solve_ops, err_sat, err_solve = check_staged(
+        "main", fleet.build_pile_fleet(ENVS, BODIES, dev), params, 3)
+    check_staged("mixed", fleet.build_mixed_fleet(64, 24, 5, dev), mixed, 3)
+    kinds, iters = params.shape_kinds, params.iterations
+    sat_ms = cuda_ms(lambda: pp.sat_fleet(*sat_ops, kinds), 20)
+    sat_plain_ms = cuda_ms(lambda: pp.sat_reference(*sat_ops, kinds), 3)
+    solve_ms = cuda_ms(lambda: pp.solve_fleet(*solve_ops, iters), 20)
+    solve_plain_ms = cuda_ms(lambda: pp.solve_reference(*solve_ops, iters), 3)
+    # bounds: every operand read once, every output written once; the plain
+    # version's operations on the slots that hold work (valid pairs for the
+    # SAT, pairs with a valid contact for the solve)
+    sat_outs = pp.sat_reference(*sat_ops, kinds)
+    sat_bytes = 4 * sum(x.numel() for x in (*sat_ops, *sat_outs))
+    sat_live = (sat_ops[2] > 0.5).float().mean().item()
+    sat_count = count_ops(lambda: pp.sat_reference(*sat_ops, kinds)) * sat_live
+    sat_bound, sat_by = bound(sat_bytes, sat_count)
+    # the solve reads its indices and velocities and writes its outputs
+    # whole; of the pack, every slot reads its validity and impulse rows
+    # (4 quantities x K), and only a slot with a valid contact the rest
+    solve_outs = pp.solve_reference(*solve_ops, iters)
+    jac = solve_ops[0]
+    q_cv = pp._solve_q("cvalid") * 4
+    solve_live = (jac[:, q_cv:q_cv + 4] > 0.5).any(1).float().mean().item()
+    always_rows = 4 * pp._K  # cvalid, ln0, l10, l20: K rows each
+    pack_bytes = 4 * jac.shape[0] * jac.shape[2] * (
+        always_rows + (jac.shape[1] - always_rows) * solve_live)
+    solve_bytes = pack_bytes + 4 * sum(x.numel() for x in (*solve_ops[1:], *solve_outs))
+    solve_count = count_ops(lambda: pp.solve_reference(*solve_ops, iters)) * solve_live
+    solve_bound, solve_by = bound(solve_bytes, solve_count)
+    print(json.dumps({
+        "sat_ms": sat_ms, "sat_plain_ms": sat_plain_ms, "sat_bound_ms": sat_bound,
+        "sat_bound_by": sat_by, "sat_bytes": sat_bytes, "sat_operations": sat_count,
+        "solve_ms": solve_ms, "solve_plain_ms": solve_plain_ms, "solve_bound_ms": solve_bound,
+        "solve_bound_by": solve_by, "solve_bytes": solve_bytes, "solve_pack_bytes": pack_bytes,
+        "solve_operations": solve_count, "live_pair_share": sat_live,
+        "contact_pair_share": solve_live, "envs": ENVS, "bodies": BODIES, "pairs": 128,
+        "card": card}), flush=True)
+
+    run(pp.step_planar_staged, 3)  # warm: the solve kernel's first launch sets its attributes
+    reset_counts()
+    b_st, ovf, secs = run(pp.step_planar_staged, STEPS)
+    sat_launches, solve_launches = pp.SAT_KERNEL_LAUNCHES, pp.SOLVE_KERNEL_LAUNCHES
+    print(json.dumps({"metric": "physics_env_steps_per_sec", "path": "cuda-staged",
+                      "value": ENVS * STEPS / secs, "envs": ENVS, "bodies": BODIES,
+                      "steps": STEPS, "seconds": secs, "card": card}), flush=True)
+    if sat_launches != STEPS or solve_launches != STEPS or pp.MIDDLE_KERNEL_LAUNCHES != 0:
+        fail(f"the staged path launched the SAT kernel {sat_launches} and the solve kernel "
+             f"{solve_launches} times in {STEPS} steps")
+    if ovf != 0:
+        fail(f"pair overflow {ovf} in the staged path")
+    if not all(torch.isfinite(x).all().item()
+               for x in (*b_st.pos, *b_st.quat, *b_st.vel, *b_st.omega)):
+        fail("the staged path's state is not finite")
+    b_st, _, _ = run(pp.step_planar_staged, PLAIN_STEPS)
+    dev_env = torch.stack([(x - y).abs() for x, y in zip(b_kern.pos, b_st.pos)]).amax((0, 2))
+    print(json.dumps({"check": "staged vs fused trajectory", "steps": PLAIN_STEPS,
+                      "pos_max_abs_diff": dev_env.max().item(),
+                      "envs_within_1e-5": (dev_env <= 1e-5).float().mean().item()}), flush=True)
+    if (dev_env <= 1e-5).float().mean().item() < 0.99:
+        fail("the staged path's trajectory departs from the fused path's")
 
     # ---- 5. raster kernels vs plain --------------------------------------
     t0 = time.perf_counter()
@@ -582,13 +721,109 @@ def main():
                       "pixels_differing": differ}), flush=True)
     del env
 
-    # ---- 9. records ------------------------------------------------------
+    # ---- 9. training at full width ------------------------------------------
+    from scx_torch.rl import PPOConfig, make_ppo_train_step
+    from scx_torch.rl import train_ppo as tex
+
+    def train(env, net_init, ac, apply, moved):
+        """1 warm and TRAIN_STEPS timed train steps; returns the raster
+        launches and one step's reward."""
+        gen = torch.Generator(device=dev).manual_seed(0)
+        net = net_init(gen)
+        train_step, place = make_ppo_train_step(
+            env, ac, apply, TRAIN_LEN, lambda ps: torch.optim.Adam(ps, lr=3e-4, eps=1e-8),
+            PPOConfig())
+        batch, cache, opt_state = place(env.state), place(env.cache), None
+        net, opt_state, batch, cache, _ = train_step(net, opt_state, batch, cache, gen)
+        torch.cuda.synchronize()
+        before = {k: v.detach().clone() for k, v in net.items()}
+        pos0 = batch.transform.pos.clone()
+        env.take_rollout_info()
+        reset_counts()
+        secs = []
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            net, opt_state, batch, cache, metrics = train_step(net, opt_state, batch, cache, gen)
+            metrics = {k: float(v) for k, v in metrics.items()}  # host reads end the step
+            secs.append(time.perf_counter() - t0)
+            if not all(map(math.isfinite, metrics.values())):
+                fail(f"training ({env.obs_mode}): metrics {metrics}")
+        steps = TRAIN_STEPS * TRAIN_LEN
+        info = env.take_rollout_info()  # counted on the device by the rollout
+        nans, ovf = info["nan_rollbacks"], info["pair_overflow"]
+        middle_n = pp.MIDDLE_KERNEL_LAUNCHES
+        raster_n = tr.RASTER_TILES_BATCHED_LAUNCHES + trc.RASTER_CLUSTERS_BATCHED_LAUNCHES
+        print(json.dumps({
+            "metric": "ppo_env_steps_per_sec", "path": "cuda-kernel", "config": "tiles",
+            "obs_mode": env.obs_mode, "agents": env.n_agents, "envs": env.n_envs,
+            "length": TRAIN_LEN, "value": env.n_envs * steps / sum(secs), "seconds": secs,
+            "metrics": metrics, "middle_launches": middle_n,
+            "raster_launches": raster_n, "nan_rollbacks": nans, "pair_overflow": ovf,
+            "card": card}), flush=True)
+        if middle_n != steps:
+            fail(f"training ({env.obs_mode}): {middle_n} middle launches in "
+                 f"{steps} env steps")
+        if nans or ovf:
+            fail(f"training ({env.obs_mode}): nan_rollbacks {nans}, pair_overflow {ovf}")
+        for k in moved:
+            if not (net[k].detach() - before[k]).abs().max().item() > 0:
+                fail(f"training ({env.obs_mode}): parameter {k} did not move")
+        if not (batch.transform.pos - pos0).abs().max().item() > 0:
+            fail(f"training ({env.obs_mode}): the env state did not advance")
+        # the trained-on state stepped once more, for the reward's shape
+        env.state, env.cache = batch, cache
+        agents = () if env.n_agents == 1 else (env.n_agents,)
+        _, reward = env.step(torch.zeros((env.n_envs, *agents, 4), device=dev))
+        return raster_n, reward
+
+    env = rlenv.make_fleet("tiles", dev)
+    raster_n, reward = train(env, lambda g: tex.net_init(g, 128), tex.actor_critic,
+                             tex.ac_apply, ("conv1", "pi_head", "v_head"))
+    # one observation before the first step of each rollout, then one per step
+    if raster_n != TRAIN_STEPS * (TRAIN_LEN + 1) or tuple(reward.shape) != (env.n_envs,):
+        fail(f"rgbd training: {raster_n} batched raster launches in {TRAIN_STEPS} train steps")
+    del env
+    env = rlenv.make_fleet("tiles", dev, static_bake=False, obs_mode="state", n_agents=4)
+    raster_n, reward = train(env, lambda g: tex.state_net_init(g, env.STATE_OBS_DIM),
+                             tex.state_actor_critic, tex.state_ac_apply,
+                             ("w1", "pi_head", "v_head"))
+    if raster_n != 0 or tuple(reward.shape) != (env.n_envs, 4):
+        fail(f"state training: {raster_n} raster launches, reward {tuple(reward.shape)}")
+    del env
+    # two agents per env through the kernel and plainly: 1,024 chase views
+    env = rlenv.make_fleet("tiles", dev, n_envs=512, n_agents=2)
+    act2 = torch.tensor([[rlenv.FLEET_ACTIONS["tiles"], (0.5, 0.0, -0.2, 0.0)]], device=dev)
+    obs, reward = env.step(act2.repeat(env.n_envs, 1, 1))
+    obs_k, g_k, _ = env.observe()
+    _, g_p, _ = env.observe(plain=True)
+    err_a, differ = check_gbuffer("two-agent tile fleet plain vs kernel", g_k, g_p)
+    print(json.dumps({"check": "two-agent tile fleet plain vs kernel", "envs": env.n_envs,
+                      "views": int(g_k["depth"].shape[0]), "obs": list(obs_k.shape),
+                      "max_abs_err": err_a, "pixels_differing": differ,
+                      "covered_share": (obs_k[..., 3] < 1.0).float().mean().item()}), flush=True)
+    if (tuple(obs_k.shape) != (512, 2, 128, 128, 4) or tuple(reward.shape) != (512, 2)
+            or not torch.equal(obs, obs_k) or not (obs_k[..., 3] < 1.0).any()
+            or env.last_info != {"nan_rollbacks": 0, "pair_overflow": 0}):
+        fail("two-agent tile fleet: wrong shapes, nothing covered, or a faulty step")
+    del env
+
+    # ---- 10. records -----------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": "planar_middle", "route": "cuda",
          "source": "scx_torch/physics/csrc/planar_middle.cu",
          "replaces": "scx/physics/planar.py:1786", "launches": launches,
          "max_abs_err": err_main, "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": mid_bound, "bound_by": mid_by, "library_ms": None},
+        {"name": "planar_sat", "route": "cuda",
+         "source": "scx_torch/physics/csrc/planar_staged.cu",
+         "replaces": "scx/physics/planar.py:818", "launches": sat_launches,
+         "max_abs_err": err_sat, "ms": sat_ms, "plain_ms": sat_plain_ms,
+         "bound_ms": sat_bound, "bound_by": sat_by, "library_ms": None},
+        {"name": "planar_solve", "route": "cuda",
+         "source": "scx_torch/physics/csrc/planar_staged.cu",
+         "replaces": "scx/physics/planar.py:1283", "launches": solve_launches,
+         "max_abs_err": err_solve, "ms": solve_ms, "plain_ms": solve_plain_ms,
+         "bound_ms": solve_bound, "bound_by": solve_by, "library_ms": None},
         {"name": "rasterize_clusters", "route": "cuda",
          "source": "scx_torch/ops/csrc/raster.cu",
          "replaces": "scx/ops/raster_clusters.py:404",

@@ -11,9 +11,15 @@ use_cluster_obs). Every column carries the env axis written out, [E, C,
 ...]; scx's one jitted step over a vmap becomes one eager pass over the
 fleet, whose physics middle and raster are hand-written CUDA kernels.
 
-This is the env's serving path: reset, step and rollout with given
-actions, obs_mode "rgbd" and one agent per env. Training helpers,
-state observations and several agents per env are not ported.
+Serving: reset, step and rollout with given actions. Training:
+make_policy_rollout and make_trajectory_rollout run a policy inside the
+step loop on the same device (scx_torch.rl builds PPO on them). obs_mode
+"state" gives STATE_OBS_DIM floats per agent and runs no raster at all;
+n_agents = K > 1 puts K policy cars into each env (actions [E, K, 4],
+rewards [E, K], RGB-D observations [E, K, H, W, 4] with the K chase
+cameras folded into the batched raster's env axis). scx's sharded
+rollouts (rollout_sharded, thread_baked) and its launch chunker are not
+ported.
 """
 
 from __future__ import annotations
@@ -25,13 +31,17 @@ from scx_torch import resolve_device
 from scx_torch.app.sandbox import SimParams, make_sim_tick, spawn_player_vehicle
 from scx_torch.core import math3d as m3
 from scx_torch.core.config import EngineConfig, TrafficConfig, WorldPartitionConfig
+from dataclasses import replace
+
+from scx_torch.physics.queries import raycast
 from scx_torch.physics.solver import SolverParams
-from scx_torch.physics.world import empty_sync_cache
+from scx_torch.physics.world import bodies_from_state, empty_sync_cache
 from scx_torch.render import staticbake as sb
 from scx_torch.render.camera import CameraParams, camera_view_proj
 from scx_torch.render.mesh import build_mesh_pool
 from scx_torch.render.pipeline import RasterParams, raster_gbuffer_batched, setup_triangles
 from scx_torch.state import entity as ent
+from scx_torch.traffic import lanes as ln
 from scx_torch.traffic.lanes import LaneGraphBuilder
 from scx_torch.world import procgen
 from scx_torch.world.culling import cull_entities, emit_draws
@@ -45,13 +55,36 @@ def squash_raw_actions(raw: torch.Tensor) -> torch.Tensor:
                         (t[..., 3] + 1.0) * 0.5], dim=-1)
 
 
+def _stack_tree(items: list):
+    """A list of equal pytrees (tensors in dicts / tuples / lists) as one
+    pytree of tensors stacked along a new leading axis."""
+    first = items[0]
+    if isinstance(first, dict):
+        return {k: _stack_tree([it[k] for it in items]) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(_stack_tree(list(col)) for col in zip(*items))
+    return torch.stack(items)
+
+
 class CityRLEnv:
     """Batched sim-for-RL env. Actions: [E, 4] (throttle, brake, steer,
-    handbrake); observations: RGB-D [E, H, W, 4] (color, then depth);
-    rewards: forward progress of the player car, [E] (m per step).
+    handbrake); observations: RGB-D [E, H, W, 4] (color, then depth), or
+    with obs_mode="state" STATE_OBS_DIM floats; rewards: forward progress
+    of the player car, [E] (m per step). With n_agents = K > 1: actions
+    [E, K, 4], observations [E, K, ...], rewards [E, K]; agent 0 is the
+    player, the extras spawn on a grid around it.
 
     Arguments are scx's, with `device` (the card by default) in place of
     `interpret`."""
+
+    # per-agent state-observation layout (obs_mode="state"):
+    #   0:3  world-frame velocity        9:11 look-ahead target (xz, rel)
+    #   3:5  forward direction (xz)      11   lane-valid flag
+    #   5    forward speed               12:14 nearest mover (xz, rel)
+    #   6    yaw rate (omega_y)          14   nearest-mover distance (<=50)
+    #   7:9  position (xz / 64)          15   forward clearance ray (<=20)
+    STATE_OBS_DIM = 16
+    _RAY_LEN = 20.0
 
     def __init__(
         self,
@@ -70,7 +103,15 @@ class CityRLEnv:
         max_tris: int | None = None,
         obs_clip_extra: int = 512,
         static_bake: bool = False,
+        obs_mode: str = "rgbd",
+        n_agents: int = 1,
     ):
+        if obs_mode not in ("rgbd", "state"):
+            raise ValueError(f"obs_mode {obs_mode!r} not in ('rgbd','state')")
+        if not 1 <= n_agents <= 8:
+            raise ValueError("n_agents must be in 1..8")
+        self.obs_mode = obs_mode
+        self.n_agents = n_agents
         self.device = resolve_device(device)
         self.n_envs = n_envs
         self.capacity = capacity
@@ -104,11 +145,15 @@ class CityRLEnv:
         self.sim = SimParams(solver=SolverParams(
             iterations=self.cfg.physics.solver_iterations, shape_kinds=("box",)))
         self._tick = make_sim_tick(self.cfg, self.sim, max_substeps=substeps,
-                                   vehicle_reserve=4)
+                                   vehicle_reserve=3 + n_agents)
         self.substeps = substeps
         self.seed = seed
         self.n_traffic = n_traffic
         self.player = capacity - 1
+        # agent 0 is the player; the extras fill descending slots, which keep
+        # their template values in _build_batch
+        self.agent_slots = torch.tensor([capacity - 1 - j for j in range(n_agents)],
+                                        device=self.device)
 
         # lanes shared by every env (each uses sector (0, 0)'s cross)
         lanes = LaneGraphBuilder(max_nodes=64, max_segments=32)
@@ -200,9 +245,24 @@ class CityRLEnv:
         s = {key: torch.from_numpy(np.stack([c[key] for c in per_env])).to(self.device)
              for key in per_env[0]}
         batch = ent.alloc_entity_state(self.capacity, self.n_envs, self.device)
-        spawn_player_vehicle(batch, self.player, pos=(32.0, 0.6, 16.0))
-        # the player's slot keeps its template (vehicle) values
-        kp = torch.arange(self.capacity, device=self.device) >= self.capacity - 1
+        # agent 0 at the reference spawn (32, 16); extras on a 3-wide grid
+        # around it, every cell on the sector's ground slab
+        agent_xz = [(32.0 + 4.0 * (((j + 1) % 3) - 1), 16.0 - 7.0 * ((j + 1) // 3))
+                    for j in range(self.n_agents)]
+        for j, (ax, az) in enumerate(agent_xz):
+            spawn_player_vehicle(batch, self.capacity - 1 - j, pos=(ax, 0.6, az))
+        if self.n_agents > 1:
+            # small static props are cleared from the extra agents' cells, so
+            # that no car overlaps a prop at reset; agent 0's cell is not, and
+            # the one-agent scene stays what it was
+            extra = torch.tensor(agent_xz[1:], device=self.device)          # [K-1, 2]
+            d = (s["pos"][:, :, None, [0, 2]] - extra).abs()                # [E, C, K-1, 2]
+            near = ((d[..., 0] < 4.0) & (d[..., 1] < 5.0)).any(-1)
+            small = s["half"].amax(-1) < 4.0  # never the ground
+            is_prop = (s["body_type"] == ent.BODY_STATIC) & (s["mode"] == ent.TRAFFIC_NONE)
+            s["alive"] = s["alive"] & ~(near & small & is_prop)
+        # the agents' slots keep their template (vehicle) values
+        kp = torch.arange(self.capacity, device=self.device) >= self.capacity - self.n_agents
 
         def sel(new, old):
             return torch.where(kp.reshape((1, -1) + (1,) * (old.dim() - 2)), old, new)
@@ -217,13 +277,14 @@ class CityRLEnv:
         return batch
 
     # ------------------------------------------------------------------
-    def _camera_vp(self, state: ent.EntityState) -> torch.Tensor:
-        """Chase-view viewProj [E, 4, 4]: 7 m behind and 3 m above the
-        player, looking at 1 m above it."""
+    def _camera_vp(self, state: ent.EntityState, slot: int | None = None) -> torch.Tensor:
+        """Chase-view viewProj [E, 4, 4]: 7 m behind and 3 m above the car
+        in `slot` (default: the player), looking at 1 m above it."""
         dev = self.device
         vec = lambda *v: torch.tensor(v, dtype=torch.float32, device=dev)
-        ppos = state.transform.pos[:, self.player]
-        prot = state.transform.rot[:, self.player]
+        slot = self.player if slot is None else slot
+        ppos = state.transform.pos[:, slot]
+        prot = state.transform.rot[:, slot]
         z = vec(0.0, 0.0, 1.0)
         fwd = m3.quat_rotate(prot, z.expand_as(ppos))
         fwd = m3.safe_normalize(fwd * vec(1.0, 0.0, 1.0), z)
@@ -232,12 +293,22 @@ class CityRLEnv:
                                 aspect=1.0, params=CameraParams(fov_y_deg=70.0))
 
     def setup_obs(self, state: ent.EntityState, baked=None):
-        """Triangle setup of every env's chase view: (setup [E, T, 32], aabb
-        [E, T, 4], valid [E, T], the RasterParams to bin them with). With a
-        bake, scenery projects from the baked columns and only the dynamic
-        handful goes through cull/emit/setup (statics first, then
-        dynamics: the unbaked path's draw order)."""
-        vp = self._camera_vp(state)
+        """Triangle setup of every chase view: (setup [E*K, T, 32], aabb
+        [E*K, T, 4], valid [E*K, T], the RasterParams to bin them with),
+        agent-minor. With a bake, scenery projects from the baked columns
+        and only the dynamic handful goes through cull/emit/setup (statics
+        first, then dynamics: the unbaked path's draw order). The K
+        cameras of an env fold into the batched raster's env axis."""
+        if self.n_agents == 1:
+            return self._setup_view(state, baked, self.player)
+        views = [self._setup_view(state, baked, self.capacity - 1 - j)
+                 for j in range(self.n_agents)]
+        fold = lambda xs: torch.stack(xs, dim=1).flatten(0, 1)
+        return (*(fold([v[i] for v in views]) for i in range(3)), views[0][3])
+
+    def _setup_view(self, state: ent.EntityState, baked, slot: int):
+        """setup_obs for the one camera behind `slot`: [E, T, ...]."""
+        vp = self._camera_vp(state, slot)
         visible, mats = cull_entities(state, vp)
         if baked is None:
             draws = emit_draws(state, visible, mats, self.draw_budget)
@@ -251,14 +322,78 @@ class CityRLEnv:
 
     def observe(self, state: ent.EntityState | None = None, *, plain: bool = False):
         """RGB-D observations of a fleet state (default: the current one):
-        (obs [E, H, W, 4], gbuffer dict, raster stats). plain=True
-        rasterizes with the kernels' plain PyTorch versions."""
+        (obs [E, H, W, 4], or [E, K, H, W, 4] with K > 1 agents; the
+        G-buffer dict over the folded [E*K] views; raster stats).
+        plain=True rasterizes with the kernels' plain PyTorch versions."""
         state = self.state if state is None else state
         setup, aabb, valid, params = self.setup_obs(state, self.baked)
         g, stats = raster_gbuffer_batched(setup, aabb, valid, params, plain=plain)
-        return torch.cat([g["color"], g["depth"][..., None]], dim=-1), g, stats
+        obs = torch.cat([g["color"], g["depth"][..., None]], dim=-1)
+        if self.n_agents > 1:
+            obs = obs.unflatten(0, (-1, self.n_agents))
+        return obs, g, stats
+
+    def _state_obs(self, state: ent.EntityState) -> torch.Tensor:
+        """STATE_OBS_DIM floats per agent, [E, K, S]. The guidance terms are
+        what the traffic AI computes for its own agents (nearest lane,
+        look-ahead point, the forward sensor ray), so a policy sees the
+        world the scripted agents act on."""
+        slots = self.agent_slots
+        k = slots.shape[0]
+        pos = state.transform.pos[:, slots]                       # [E, K, 3]
+        rot = state.transform.rot[:, slots]
+        vel = state.body.vel[:, slots]
+        omega_y = state.body.omega[:, slots, 1]
+        z = torch.tensor([0.0, 0.0, 1.0], device=pos.device)
+        fwd = m3.quat_rotate(rot, z.expand_as(pos))
+        speed = (vel * fwd).sum(-1)
+
+        # lane guidance (a fresh query each time: policy cars carry no lane state)
+        q_lane, q_s, _ = ln.nearest_lane(self.lanes, pos)
+        tgt, _, tgt_ok = ln.look_ahead_point(self.lanes, q_lane, q_s, torch.full_like(q_s, 8.0))
+        to_tgt = torch.where(tgt_ok[..., None], tgt - pos, 0.0)
+
+        # nearest other moving body (traffic or another agent)
+        moving = state.alive & (state.body.body_type != ent.BODY_STATIC)      # [E, C]
+        d2 = ((pos[:, :, None, :] - state.transform.pos[:, None, :, :]) ** 2).sum(-1)
+        is_self = slots[:, None] == torch.arange(self.capacity, device=pos.device)
+        d2 = torch.where(moving[:, None, :] & ~is_self, d2, torch.inf)        # [E, K, C]
+        dmin, j = d2.min(dim=-1)
+        has_mover = torch.isfinite(dmin)  # a scene of statics only: all inf
+        near_dist = torch.where(has_mover, torch.sqrt(torch.where(has_mover, dmin, 0.0)), 50.0)
+        near_dist = near_dist.clamp(max=50.0)
+        near_pos = torch.gather(state.transform.pos, 1, j[..., None].expand(-1, -1, 3))
+        near_rel = torch.where(has_mover[..., None], near_pos - pos, 0.0)
+
+        # forward clearance (the AI's sensor ray, from the chassis nose)
+        origin = pos + fwd * 2.2 + torch.tensor([0.0, 0.3, 0.0], device=pos.device)
+        hits = raycast(bodies_from_state(state), origin, fwd, self._RAY_LEN, query_mask=1,
+                       exclude=slots.expand(pos.shape[0], k))
+        ray_dist = torch.where(hits.hit, hits.t, self._RAY_LEN)
+
+        xz = [0, 2]
+        return torch.cat([
+            vel, fwd[..., xz], speed[..., None], omega_y[..., None], pos[..., xz] / 64.0,
+            to_tgt[..., xz], tgt_ok[..., None].to(torch.float32), near_rel[..., xz],
+            near_dist[..., None], ray_dist[..., None],
+        ], dim=-1)
+
+    def _obs(self, state: ent.EntityState) -> torch.Tensor:
+        """Observations by obs_mode: rgbd [E(, K), H, W, 4]; state
+        [E(, K), STATE_OBS_DIM]. The agent axis is there when K > 1."""
+        if self.obs_mode == "state":
+            obs = self._state_obs(state)
+            return obs[:, 0] if self.n_agents == 1 else obs
+        return self.observe(state)[0]
 
     def _step_impl(self, batch, cache, actions):
+        if self.n_agents > 1:
+            # the extra agents' inputs go in first; the tick then writes
+            # agent 0's (the player's)
+            vin = batch.vehicle.input.clone()
+            vin[:, self.agent_slots[1:]] = actions[:, 1:]
+            batch = replace(batch, vehicle=replace(batch.vehicle, input=vin))
+            actions = actions[:, 0]
         new_batch, new_cache, _, counts = self._tick(
             batch, cache, self.lanes, self.player, actions, self.substeps)
         # NaN-state detection with rollback: a solver blow-up in one env
@@ -274,27 +409,36 @@ class CityRLEnv:
         cache = ent.tree_map(keep, new_cache, cache)
         info = {"nan_rollbacks": (~ok).sum(dtype=torch.int32),
                 "pair_overflow": counts["pair_overflow"].max()}
-        obs, _, _ = self.observe(batch)
-        rot = batch.transform.rot[:, self.player]
-        fwd = m3.quat_rotate(rot, torch.tensor([0.0, 0.0, 1.0], device=rot.device).expand(
-            rot.shape[:-1] + (3,)))
-        fwd_speed = (batch.body.vel[:, self.player] * fwd).sum(-1)
+        obs = self._obs(batch)
+        # reward: forward progress per agent (m per step), [E] or [E, K]
+        if self.obs_mode == "state":
+            fwd_speed = obs[..., 5]  # the state observation carries it
+        else:
+            rot = batch.transform.rot[:, self.agent_slots]
+            z = torch.tensor([0.0, 0.0, 1.0], device=rot.device)
+            fwd = m3.quat_rotate(rot, z.expand(rot.shape[:-1] + (3,)))
+            fwd_speed = (batch.body.vel[:, self.agent_slots] * fwd).sum(-1)
+            if self.n_agents == 1:
+                fwd_speed = fwd_speed[:, 0]
         reward = fwd_speed * (self.cfg.physics.fixed_dt * self.substeps)
         return batch, cache, obs, reward, info
 
     # ------------------------------------------------------------------
     def reset(self) -> torch.Tensor:
-        """Rebuild every env; returns a zero observation [E, H, W, 4]."""
+        """Rebuild every env; returns a zero observation of the mode's shape."""
         self.state = self._build_batch()
         self.baked = self._bake_static() if self.static_bake else None
         self.cache = empty_sync_cache(self.n_envs, self.sim.solver.max_pairs, self.device)
         self.last_info = {"nan_rollbacks": 0, "pair_overflow": 0}
-        return torch.zeros((self.n_envs, self.raster.height, self.raster.width, 4),
-                           device=self.device)
+        self._rollout_info = None
+        agents = () if self.n_agents == 1 else (self.n_agents,)
+        per_agent = ((self.STATE_OBS_DIM,) if self.obs_mode == "state"
+                     else (self.raster.height, self.raster.width, 4))
+        return torch.zeros((self.n_envs, *agents, *per_agent), device=self.device)
 
     def step(self, actions):
-        """actions [E, 4] -> (obs [E, H, W, 4], reward [E]); reads the
-        step's info to the host (last_info)."""
+        """actions [E, 4] (or [E, K, 4]) -> (obs, reward [E] or [E, K]);
+        reads the step's info to the host (last_info)."""
         actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
         self.state, self.cache, obs, reward, info = self._step_impl(
             self.state, self.cache, actions)
@@ -319,6 +463,91 @@ class CityRLEnv:
         self.last_info = {"nan_rollbacks": int(nans), "pair_overflow": int(overflow)}
         return torch.stack(means), torch.stack(rewards)
 
+    def _count(self, info) -> None:
+        """Adds one step's info to the counts the policy and trajectory
+        rollouts keep, on the device with no host read."""
+        if self._rollout_info is None:
+            self._rollout_info = dict(info)
+        else:
+            acc = self._rollout_info
+            acc["nan_rollbacks"] = acc["nan_rollbacks"] + info["nan_rollbacks"]
+            acc["pair_overflow"] = torch.maximum(acc["pair_overflow"], info["pair_overflow"])
+
+    def take_rollout_info(self) -> dict:
+        """NaN rollbacks (summed) and pair overflow (the largest) over the
+        steps that policy and trajectory rollouts ran since the last call
+        or reset, read to the host; the counts start again from zero."""
+        acc, self._rollout_info = self._rollout_info, None
+        if acc is None:
+            return {"nan_rollbacks": 0, "pair_overflow": 0}
+        return {k: int(v) for k, v in acc.items()}
+
+    def make_policy_rollout(self, policy, length: int):
+        """A policy-in-the-loop rollout for training on the device.
+
+        `policy(params, obs, generator) -> (actions, logp [E])`, with obs and
+        actions in this env's shapes, runs between the steps on the env's
+        device, so observations never leave it. Returns a function
+            (batch, cache, params, generator) ->
+                (batch, cache, (rewards [L, E], logps [L, E], obs_means [L, E]))
+        whose logps carry the graph through the policy only: the engine
+        step runs under torch.no_grad() on detached actions (score-function
+        estimators need no path through physics or raster), so the returned
+        state carries no graph. `generator` is a torch.Generator on the
+        env's device, the randomness the policy draws from. The steps' NaN
+        rollbacks and pair overflow are counted on the env
+        (take_rollout_info)."""
+
+        def fn(batch, cache, params, generator):
+            with torch.no_grad():
+                obs = self._obs(batch)
+            rews, logps, means = [], [], []
+            for _ in range(length):
+                actions, logp = policy(params, obs, generator)
+                with torch.no_grad():
+                    batch, cache, obs, rew, info = self._step_impl(batch, cache, actions.detach())
+                    self._count(info)
+                rews.append(rew)
+                logps.append(logp)
+                means.append(obs.reshape(obs.shape[0], -1).mean(-1))
+            return batch, cache, (torch.stack(rews), torch.stack(logps), torch.stack(means))
+
+        return fn
+
+    def make_trajectory_rollout(self, actor_critic, length: int):
+        """Trajectory collection on the device for actor-critic methods.
+
+        `actor_critic(params, obs, generator) -> (actions, logp, value,
+        store)`; `store` is whatever pytree of tensors the update needs to
+        recompute logp and value under new parameters. Returns a function
+            (batch, cache, params, generator) -> (batch, cache, traj)
+        with traj = {'store' [L, ...], 'logp', 'value', 'reward' [L, E(, K)],
+        'last_value' [E(, K)]}; last_value bootstraps GAE. Nothing in it
+        carries a graph: the whole collection runs under torch.no_grad(),
+        and the update differentiates `apply(params, store)` instead. The
+        steps' NaN rollbacks and pair overflow are counted on the env
+        (take_rollout_info)."""
+
+        @torch.no_grad()
+        def fn(batch, cache, params, generator):
+            obs = self._obs(batch)
+            stores, logps, values, rews = [], [], [], []
+            for _ in range(length):
+                actions, logp, value, store = actor_critic(params, obs, generator)
+                batch, cache, obs, rew, info = self._step_impl(batch, cache, actions)
+                self._count(info)
+                stores.append(store)
+                logps.append(logp)
+                values.append(value)
+                rews.append(rew)
+            _, _, last_value, _ = actor_critic(params, obs, generator)
+            traj = {"store": _stack_tree(stores), "logp": torch.stack(logps),
+                    "value": torch.stack(values), "reward": torch.stack(rews),
+                    "last_value": last_value}
+            return batch, cache, traj
+
+        return fn
+
 
 # The RL fleet's two configurations at full width: bench_rlenv.py's default
 # (tile path) and bench_rlenv_glb.py's GLB scene (cluster path).
@@ -332,10 +561,12 @@ FLEETS = {
 FLEET_ACTIONS = {"tiles": (0.7, 0.0, 0.1, 0.0), "glb_clusters": (0.6, 0.0, 0.1, 0.0)}
 
 
-def make_fleet(name: str, device=None, static_bake: bool = True, n_envs: int | None = None):
+def make_fleet(name: str, device=None, static_bake: bool = True, n_envs: int | None = None,
+               **options):
     """One of FLEETS as a CityRLEnv on `device` (the card by default);
-    n_envs cuts the env count (depth), nothing else."""
-    kw = dict(FLEETS[name], static_bake=static_bake, device=device)
+    n_envs cuts the env count (depth), nothing else. `options` are further
+    CityRLEnv arguments (obs_mode, n_agents)."""
+    kw = dict(FLEETS[name], static_bake=static_bake, device=device, **options)
     if n_envs is not None:
         kw["n_envs"] = n_envs
     if name == "glb_clusters":

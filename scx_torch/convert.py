@@ -1,10 +1,11 @@
 """State of the JAX package, as numpy arrays, into the port's dataclasses.
 
 Inputs are the numpy pytrees that `jax.tree.map(np.asarray, x)` gives for
-scx's RigidBodies, PlanarBodies and PlanarCache (any leading fleet dims),
-EntityState (with a leading env axis), LaneArrays, MeshPool, DrawList,
-Materials and MipTextures, and any object with SolverParams',
-RasterParams' or SimParams' attributes. Fields are read by attribute,
+scx's RigidBodies, PlanarBodies, PlanarCache and PlanarContacts (any
+leading fleet dims), EntityState (with a leading env axis), LaneArrays, MeshPool, DrawList,
+Materials and MipTextures, the policy parameter dicts of
+examples/train_ppo.py, and any object with SolverParams', RasterParams'
+or SimParams' attributes. Fields are read by attribute,
 so this module needs neither jax nor scx. Nothing here has learned
 weights: this state and scene data is what carries across. Tensors go to
 `device`, the card unless the caller names another.
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from scx_torch import resolve_device
-from scx_torch.physics.planar import PlanarBodies, PlanarCache
+from scx_torch.physics.planar import PlanarBodies, PlanarCache, PlanarContacts
 from scx_torch.physics.planes import Q4, V3
 from scx_torch.physics.rigid import RigidBodies
 from scx_torch.physics.solver import SolverParams
@@ -72,6 +73,27 @@ def planar_cache(c, device=None) -> PlanarCache:
     return _convert(PlanarCache, c, device)
 
 
+def planar_contacts(c, device=None) -> PlanarContacts:
+    return _convert(PlanarContacts, c, device)
+
+
+def numpy_tree(x):
+    """The way back: a port dataclass (nested, with V3 / Q4 planes), tuple,
+    list or dict of tensors as the same structure of numpy arrays, with
+    dataclasses as dicts by field name, for a test to hand to scx."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, (V3, Q4)):
+        return type(x)(*(numpy_tree(c) for c in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(numpy_tree(c) for c in x)
+    if isinstance(x, dict):
+        return {k: numpy_tree(v) for k, v in x.items()}
+    if hasattr(x, "__dataclass_fields__"):
+        return {f.name: numpy_tree(getattr(x, f.name)) for f in fields(x)}
+    return x
+
+
 def solver_params(p) -> SolverParams:
     return SolverParams(**{
         f.name: (tuple(getattr(p, f.name)) if f.name == "shape_kinds"
@@ -117,3 +139,28 @@ def baked(b, device=None) -> torch.Tensor:
 def sim_params(p) -> SimParams:
     return SimParams(solver=solver_params(p.solver), vehicle=VehicleParams(
         **{f.name: getattr(p.vehicle, f.name) for f in fields(VehicleParams)}))
+
+
+def trainable(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` as a leaf that autograd tracks (a policy parameter)."""
+    return t.detach().clone().requires_grad_(True)
+
+
+def policy_arrays(params: dict) -> dict:
+    """The port's policy parameters as numpy arrays in scx's layout (conv*
+    weights HWIO): what examples/train_ppo.py trains and its .npz holds."""
+    return {k: (v.detach().permute(2, 3, 1, 0) if k.startswith("conv") else v.detach())
+            .cpu().numpy() for k, v in params.items()}
+
+
+def policy_params(arrays: dict, device=None) -> dict:
+    """scx-layout policy arrays (conv* HWIO) as the port's trainable
+    parameters (conv* OIHW, requires_grad) on `device`."""
+    device = resolve_device(device)
+    out = {}
+    for k, v in arrays.items():
+        t = torch.from_numpy(np.array(v, dtype=np.float32))
+        if k.startswith("conv"):
+            t = t.permute(3, 2, 0, 1).contiguous()
+        out[k] = trainable(t.to(device))
+    return out

@@ -72,13 +72,15 @@ def build_mixed_fleet(envs: int, bodies: int, seed: int, device=None) -> pp.Plan
 
 
 def rollout(bodies: pp.PlanarBodies, cache: pp.PlanarCache,
-            params: SolverParams, steps: int, *, middle_fn=pp.middle):
+            params: SolverParams, steps: int, *, step_fn=pp.step_planar_cached):
     """`steps` fleet steps. Returns (bodies, cache, max pair_overflow over
-    every env and step as a 0-d tensor on the fleet's device)."""
+    every env and step as a 0-d tensor on the fleet's device).
+
+    step_fn(bodies, params, cache) is the step to run: the fused
+    `step_planar_cached` (bind its `middle_fn` to run the plain middle) or
+    `step_planar_staged`."""
     ovf = torch.zeros((), dtype=torch.int32, device=bodies.shape.device)
     for _ in range(steps):
-        bodies, cache, stats = pp.step_planar_cached(
-            bodies, params, cache, middle_fn=middle_fn
-        )
+        bodies, cache, stats = step_fn(bodies, params, cache)
         ovf = torch.maximum(ovf, stats["pair_overflow"].max())
     return bodies, cache, ovf

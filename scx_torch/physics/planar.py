@@ -15,6 +15,13 @@ The middle of the step (SAT narrowphase + warm-start re-association +
 solver setup + relaxed-Jacobi sweeps) is `middle`: one hand-written CUDA
 kernel per fleet on the GPU (csrc/planar_middle.cu), and its plain
 PyTorch version `middle_reference` for tensors on the CPU.
+
+The same middle also exists in stages, with scx's names: `planar_contacts`
+(the fleet SAT kernel `sat_fleet`), `planar_gather_warm`, `planar_solve`
+(the fleet solve kernel `solve_fleet`, csrc/planar_staged.cu) and
+`planar_store`; `step_planar_staged` chains them. Users who want contacts
+without a solve (trigger events, debugging, profiling by stage) call the
+stages; the fused step is the fast path.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch
 from scx_torch import _build, resolve_device
 from scx_torch.physics import planes as pl
 from scx_torch.physics.broadphase import compact_flat_indices
-from scx_torch.physics.contacts import MAX_CONTACTS_PER_PAIR
+from scx_torch.physics.contacts import MAX_CONTACTS_PER_PAIR, N_CANDIDATES
 from scx_torch.physics.planes import Q4, V3
 from scx_torch.physics.rigid import (
     SHAPE_BOX,
@@ -41,7 +48,7 @@ from scx_torch.physics.solver import SolverParams
 _FACE_BIAS_REL = 0.95
 _EPS = 1e-7
 _K = MAX_CONTACTS_PER_PAIR  # 4
-_N_CAND = 10
+_N_CAND = N_CANDIDATES
 _EMPTY = -1
 _ALL_KINDS = ("box", "sphere", "capsule")
 _INF = float("inf")
@@ -704,19 +711,26 @@ def _warm_prev(cache: PlanarCache, ka, kb, pair_valid):
 #   15:18 pos
 #   18:21 inv_inertia
 _MID_ROWS = 21
+_SAT_ROWS = 14  # the rows the SAT narrowphase reads: rows 0:14 above
+
+
+def _sat_rows(b: PlanarBodies) -> list:
+    """The _SAT_ROWS per-body planes the narrowphase reads."""
+    centers = _shape_centers(b)
+    return [
+        centers.x, centers.y, centers.z,
+        b.quat.w, b.quat.x, b.quat.y, b.quat.z,
+        b.shape.to(torch.float32),
+        b.size.x, b.size.y, b.size.z,
+        b.friction, b.restitution,
+        b.trigger.to(torch.float32),
+    ]
 
 
 def _middle_rows(b: PlanarBodies):
     """Pack the _MID_ROWS operand planes: [E, 21, N]."""
-    centers = _shape_centers(b)
     return torch.stack(
-        [
-            centers.x, centers.y, centers.z,
-            b.quat.w, b.quat.x, b.quat.y, b.quat.z,
-            b.shape.to(torch.float32),
-            b.size.x, b.size.y, b.size.z,
-            b.friction, b.restitution,
-            b.trigger.to(torch.float32),
+        _sat_rows(b) + [
             b.inv_mass,
             b.pos.x, b.pos.y, b.pos.z,
             b.inv_inertia.x, b.inv_inertia.y, b.inv_inertia.z,
@@ -747,139 +761,53 @@ def _scatter_sum(upd, idx, n):
     return out.scatter_add_(-1, idx[..., None, :].expand(upd.shape), upd)
 
 
-def middle_reference(rows, ia, ib, pvf, prev, vw0, params: SolverParams):
-    """The plain PyTorch middle: scx's _middle_core over a fleet.
+def _rel_vel(vw, iab, r_a: V3, r_b: V3) -> V3:
+    """Relative contact velocity [E, K, P] from body velocities vw [E, 6, N];
+    iab [E, 2P] is the pairs' a side, then b side."""
+    p_cap = iab.shape[-1] // 2
+    g = _gather(vw, iab)                               # [E, 6, 2P]
+    sa_ = lambda i: g[..., i:i + 1, :p_cap]
+    sb_ = lambda i: g[..., i:i + 1, p_cap:]
+    va, wa = V3(sa_(0), sa_(1), sa_(2)), V3(sa_(3), sa_(4), sa_(5))
+    vb, wb = V3(sb_(0), sb_(1), sb_(2)), V3(sb_(3), sb_(4), sb_(5))
+    return (va + pl.vcross(wa, r_a)) - (vb + pl.vcross(wb, r_b))
 
-    rows [E, 21, N], ia/ib [E, P] int, pvf [E, P] f32 broadphase validity,
-    prev [E, 4K, P] (from _warm_prev), vw0 [E, 6, N] vel/omega rows.
-    Returns (vwc [E, 7, N] — vel/omega + contact-count rows, lam [E, 12, P]
-    — ln/l1/l2 k-minor, cand/valid/trig [E, K, P] f32)."""
-    f32 = torch.float32
-    nb = rows.shape[-1]
-    p_cap = ia.shape[-1]
-    ia = ia.long()
-    ib = ib.long()
-    iab = torch.cat([ia, ib], dim=-1)                  # [E, 2P]
-    pair_valid = pvf > 0.5
-    ga = _gather(rows, ia)                             # [E, 21, P]
-    gb = _gather(rows, ib)
 
-    # --- SAT narrowphase ------------------------------------------------
-    sel_pt, sel_nm, sel_dp, sel_vd, sel_id = _sat_top_k(
-        ga, gb, pair_valid, params.shape_kinds
-    )
-    stk = lambda xs: torch.stack(xs, dim=-2)           # K-list -> [E, K, P]
-    point = V3(*(stk([p[c] for p in sel_pt]) for c in range(3)))
-    n = V3(*(stk([p[c] for p in sel_nm]) for c in range(3)))
-    depth = stk(sel_dp)
-    valid_raw = stk(sel_vd)
-    cand = stk(sel_id)
-    fr = ga[..., 11:12, :] * gb[..., 11:12, :]         # [E, 1, P]
-    re = ga[..., 12:13, :] * gb[..., 12:13, :]
-    trig = (ga[..., 13:14, :] > 0.0) | (gb[..., 13:14, :] > 0.0)
-    c_valid = valid_raw & ~trig
-    trig_ov = valid_raw & trig
-
-    # --- warm-start slot re-association ---------------------------------
-    k = _K
-    prev_cand = prev[..., :k, :].to(torch.int32) - 1
-    ln0g = torch.zeros_like(depth)
-    l10g = torch.zeros_like(depth)
-    l20g = torch.zeros_like(depth)
-    for t in range(k):
-        pc_t = prev_cand[..., t:t + 1, :]
-        mf = ((cand == pc_t) & (pc_t >= 0)).to(f32)
-        ln0g = ln0g + mf * prev[..., k + t:k + t + 1, :]
-        l10g = l10g + mf * prev[..., 2 * k + t:2 * k + t + 1, :]
-        l20g = l20g + mf * prev[..., 3 * k + t:3 * k + t + 1, :]
-
-    # --- solve setup ----------------------------------------------------
-    t1, t2 = _tangents(n)
-    pvalid = c_valid.any(dim=-2, keepdim=True)
-
-    def side(g):
-        im = g[..., 14:15, :]
-        pos = V3(g[..., 15:16, :], g[..., 16:17, :], g[..., 17:18, :])
-        quat = Q4(g[..., 3:4, :], g[..., 4:5, :], g[..., 5:6, :], g[..., 6:7, :])
-        iiv = (g[..., 18:19, :], g[..., 19:20, :], g[..., 20:21, :])
-        r = pl.q_to_mat(quat)
-        iw = tuple(
-            tuple(sum(r[i][c] * iiv[c] * r[j][c] for c in range(3)) for j in range(3))
-            for i in range(3)
-        )
-        return im, pos, iw
-
-    im_a, pos_a, iw_a = side(ga)
-    im_b, pos_b, iw_b = side(gb)
-    r_a = point - pos_a                                # [E, K, P]
-    r_b = point - pos_b
-
-    def ang(iw_x, r, d):
-        return pl.mvec(iw_x, pl.vcross(r, d))
-
-    def eff_mass(d, a_a, a_b):
-        return im_a + im_b + pl.vdot(d, pl.vcross(a_a, r_a) + pl.vcross(a_b, r_b))
-
-    a_an, a_bn = ang(iw_a, r_a, n), ang(iw_b, r_b, n)
-    a_a1, a_b1 = ang(iw_a, r_a, t1), ang(iw_b, r_b, t1)
-    a_a2, a_b2 = ang(iw_a, r_a, t2), ang(iw_b, r_b, t2)
-    kn = eff_mass(n, a_an, a_bn).clamp(min=1e-9)
-    k1 = eff_mass(t1, a_a1, a_b1).clamp(min=1e-9)
-    k2 = eff_mass(t2, a_a2, a_b2).clamp(min=1e-9)
-
-    def rel_vel(vw):
-        g = _gather(vw, iab)                           # [E, 6, 2P]
-        sa_ = lambda i: g[..., i:i + 1, :p_cap]
-        sb_ = lambda i: g[..., i:i + 1, p_cap:]
-        va, wa = V3(sa_(0), sa_(1), sa_(2)), V3(sa_(3), sa_(4), sa_(5))
-        vb, wb = V3(sb_(0), sb_(1), sb_(2)), V3(sb_(3), sb_(4), sb_(5))
-        return (va + pl.vcross(wa, r_a)) - (vb + pl.vcross(wb, r_b))
-
-    def apply(vw, lin_a, dw_a, lin_b, dw_b):
-        # per pair: sum the K contacts; then each body sums its pairs
-        ksum = lambda x: x.sum(dim=-2, keepdim=True)
-        upd = torch.cat(
-            [
-                torch.cat([ksum(la), -ksum(lb)], dim=-1)
-                for la, lb in zip(tuple(lin_a) + tuple(dw_a),
-                                  tuple(lin_b) + tuple(dw_b))
-            ],
-            dim=-2,
-        )                                              # [E, 6, 2P]
-        return vw + _scatter_sum(upd, iab, nb)
-
-    v0 = rel_vel(vw0)
-    vn0 = pl.vdot(v0, n)
-    bounce = -re * torch.where(vn0 < -params.restitution_threshold, vn0, 0.0)
-    bias = (params.baumgarte / params.dt) * (depth - params.slop).clamp(min=0.0)
-    target = torch.maximum(bounce, bias)
-
-    # Jacobi relaxation 1/max(touch_a, touch_b)
-    w = c_valid.to(f32).sum(dim=-2, keepdim=True) * pvalid
-    cnt1 = _scatter_sum(w, ia, nb) + _scatter_sum(w, ib, nb)   # [E, 1, N]
-    gcnt = _gather(cnt1, iab)
-    touch_a = torch.where(im_a > 0, gcnt[..., :p_cap], 1.0)
-    touch_b = torch.where(im_b > 0, gcnt[..., p_cap:], 1.0)
-    # a true f32 division (`float / tensor` would multiply by a reciprocal)
-    relax = torch.full_like(touch_a, params.relaxation) / torch.maximum(
-        touch_a, touch_b
-    ).clamp(min=1.0)
-
-    # warm-start clamp + pre-application
-    ws = params.warm_start
-    ln = torch.where(c_valid, (ln0g * ws).clamp(min=0.0), 0.0)
-    max_f0 = fr * ln
-    l1 = _clip(torch.where(c_valid, l10g * ws, 0.0), -max_f0, max_f0)
-    l2 = _clip(torch.where(c_valid, l20g * ws, 0.0), -max_f0, max_f0)
-    imp = n * ln + t1 * l1 + t2 * l2
-    vw = apply(
-        vw0, imp * im_a, a_an * ln + a_a1 * l1 + a_a2 * l2,
-        imp * im_b, a_bn * ln + a_b1 * l1 + a_b2 * l2,
+def _pair_updates(lin_a: V3, dw_a: V3, lin_b: V3, dw_b: V3):
+    """Velocity updates per pair side [E, 6, 2P]: each pair's K contacts
+    summed, +a side then -b side."""
+    ksum = lambda x: x.sum(dim=-2, keepdim=True)
+    return torch.cat(
+        [
+            torch.cat([ksum(la), -ksum(lb)], dim=-1)
+            for la, lb in zip(tuple(lin_a) + tuple(dw_a),
+                              tuple(lin_b) + tuple(dw_b))
+        ],
+        dim=-2,
     )
 
-    # relaxed-Jacobi sweeps
-    for _ in range(params.iterations):
-        v = rel_vel(vw)
+
+def _apply_impulses(vw, iab, lin_a, dw_a, lin_b, dw_b):
+    # per pair: sum the K contacts; then each body sums its pairs
+    upd = _pair_updates(lin_a, dw_a, lin_b, dw_b)
+    return vw + _scatter_sum(upd, iab, vw.shape[-1])
+
+
+def _iter_loop(q, iab, vw, iterations: int):
+    """The relaxed-Jacobi sweeps (scx's _iter_loop) over the quantities of
+    the solve pack: V3 of [E, K, P] for n/t1/t2/a_*/r_*, [E, K, P] for
+    kn/k1/k2/target/ln0/l10/l20, bool cvalid, [E, 1, P] for im_a/im_b/
+    relax/fr. Returns (vw, ln, l1, l2). Shared by middle_reference and
+    solve_reference, so the two stay formula-identical."""
+    n, t1, t2 = q["n"], q["t1"], q["t2"]
+    a_an, a_bn, a_a1, a_b1 = q["a_an"], q["a_bn"], q["a_a1"], q["a_b1"]
+    a_a2, a_b2, r_a, r_b = q["a_a2"], q["a_b2"], q["r_a"], q["r_b"]
+    kn, k1, k2, target = q["kn"], q["k1"], q["k2"], q["target"]
+    im_a, im_b, relax, fr = q["im_a"], q["im_b"], q["relax"], q["fr"]
+    c_valid = q["cvalid"]
+    ln, l1, l2 = q["ln0"], q["l10"], q["l20"]
+    for _ in range(iterations):
+        v = _rel_vel(vw, iab, r_a, r_b)
         d_ln = (target - pl.vdot(v, n)) / kn * relax
         ln_new = (ln + d_ln).clamp(min=0.0)
         d_ln = torch.where(c_valid, ln_new - ln, 0.0)
@@ -896,11 +824,181 @@ def middle_reference(rows, ia, ib, pvf, prev, vw0, params: SolverParams):
         l2_new = l2 + d_l2
 
         imp = n * d_ln + t1 * d_l1 + t2 * d_l2
-        vw = apply(
-            vw, imp * im_a, a_an * d_ln + a_a1 * d_l1 + a_a2 * d_l2,
+        vw = _apply_impulses(
+            vw, iab, imp * im_a, a_an * d_ln + a_a1 * d_l1 + a_a2 * d_l2,
             imp * im_b, a_bn * d_ln + a_b1 * d_l1 + a_b2 * d_l2,
         )
         ln, l1, l2 = ln_new, l1_new, l2_new
+    return vw, ln, l1, l2
+
+
+def sat_reference(ga, gb, pvf, kinds=_ALL_KINDS):
+    """The plain PyTorch fleet SAT (scx's _sat_core over a fleet).
+
+    ga, gb [E, >=14, P] f32 gathered body rows (_sat_rows order), pvf [E, P]
+    f32 broadphase validity. Returns scx's 12 outputs in its stacked layout:
+    point x/y/z, normal x/y/z, depth, valid (f32) [E, K, P], cand i32
+    [E, K, P], friction, restitution, trigger (f32) [E, P]."""
+    sel_pt, sel_nm, sel_dp, sel_vd, sel_id = _sat_top_k(ga, gb, pvf > 0.5, kinds)
+    stk = lambda xs: torch.stack(xs, dim=-2)           # K-list -> [E, K, P]
+    f32 = torch.float32
+    return (
+        *(stk([p[c] for p in sel_pt]) for c in range(3)),
+        *(stk([p[c] for p in sel_nm]) for c in range(3)),
+        stk(sel_dp),
+        stk(sel_vd).to(f32),
+        stk(sel_id),
+        ga[..., 11, :] * gb[..., 11, :],
+        ga[..., 12, :] * gb[..., 12, :],
+        ((ga[..., 13, :] > 0.0) | (gb[..., 13, :] > 0.0)).to(f32),
+    )
+
+
+def _reassociate(prev, cand):
+    """Warm impulses per current contact slot: prev [E, 4K, P] is the
+    key-matched previous pair record (_warm_prev), cand [E, K, P] the
+    current candidate ids; a slot takes the impulses of the previous slot
+    with the same candidate id. Returns (ln, l1, l2) [E, K, P]."""
+    k = _K
+    prev_cand = prev[..., :k, :].to(torch.int32) - 1
+    ln = torch.zeros_like(prev[..., :k, :])
+    l1 = torch.zeros_like(ln)
+    l2 = torch.zeros_like(ln)
+    for t in range(k):
+        pc_t = prev_cand[..., t:t + 1, :]
+        mf = ((cand == pc_t) & (pc_t >= 0)).to(torch.float32)
+        ln = ln + mf * prev[..., k + t:k + t + 1, :]
+        l1 = l1 + mf * prev[..., 2 * k + t:2 * k + t + 1, :]
+        l2 = l2 + mf * prev[..., 3 * k + t:3 * k + t + 1, :]
+    return ln, l1, l2
+
+
+def _solve_setup(side_a, side_b, point: V3, n: V3, depth, c_valid, fr, re,
+                 lam0, vw0, ia, ib, params: SolverParams, body_sum):
+    """The solver's setup (scx's planar_solve up to its pack): tangents,
+    effective masses, the bounce / Baumgarte target, the Jacobi relaxation
+    and the warm-start clamp with its pre-application.
+
+    side_a / side_b: (inv_mass [E, 1, P], pos V3 of [E, 1, P], world inverse
+    inertia 3x3 of [E, 1, P]) of each pair's bodies; point, n V3 of
+    [E, K, P]; fr, re [E, 1, P]; lam0 the re-associated (ln, l1, l2)
+    [E, K, P] or None for a cold start; ia, ib [E, P] int64; body_sum(upd)
+    sums pair-side rows [E, C, 2P] (a sides, then b sides) per body into
+    [E, C, N]. Returns (the quantities of
+    _iter_loop, vw [E, 6, N] after the pre-application, the per-body contact
+    count [E, 1, N])."""
+    f32 = torch.float32
+    nb = vw0.shape[-1]
+    p_cap = ia.shape[-1]
+    iab = torch.cat([ia, ib], dim=-1)                  # [E, 2P]
+    t1, t2 = _tangents(n)
+    pvalid = c_valid.any(dim=-2, keepdim=True)
+    im_a, pos_a, iw_a = side_a
+    im_b, pos_b, iw_b = side_b
+    r_a = point - pos_a                                # [E, K, P]
+    r_b = point - pos_b
+
+    def ang(iw_x, r, d):
+        return pl.mvec(iw_x, pl.vcross(r, d))
+
+    def eff_mass(d, a_a, a_b):
+        return im_a + im_b + pl.vdot(d, pl.vcross(a_a, r_a) + pl.vcross(a_b, r_b))
+
+    a_an, a_bn = ang(iw_a, r_a, n), ang(iw_b, r_b, n)
+    a_a1, a_b1 = ang(iw_a, r_a, t1), ang(iw_b, r_b, t1)
+    a_a2, a_b2 = ang(iw_a, r_a, t2), ang(iw_b, r_b, t2)
+    kn = eff_mass(n, a_an, a_bn).clamp(min=1e-9)
+    k1 = eff_mass(t1, a_a1, a_b1).clamp(min=1e-9)
+    k2 = eff_mass(t2, a_a2, a_b2).clamp(min=1e-9)
+
+    v0 = _rel_vel(vw0, iab, r_a, r_b)
+    vn0 = pl.vdot(v0, n)
+    bounce = -re * torch.where(vn0 < -params.restitution_threshold, vn0, 0.0)
+    bias = (params.baumgarte / params.dt) * (depth - params.slop).clamp(min=0.0)
+    target = torch.maximum(bounce, bias)
+
+    # Jacobi relaxation 1/max(touch_a, touch_b)
+    w = c_valid.to(f32).sum(dim=-2, keepdim=True) * pvalid
+    cnt1 = body_sum(torch.cat([w, w], dim=-1))         # [E, 1, N], exact: small counts
+    gcnt = _gather(cnt1, iab)
+    touch_a = torch.where(im_a > 0, gcnt[..., :p_cap], 1.0)
+    touch_b = torch.where(im_b > 0, gcnt[..., p_cap:], 1.0)
+    # a true f32 division (`float / tensor` would multiply by a reciprocal)
+    relax = torch.full_like(touch_a, params.relaxation) / torch.maximum(
+        touch_a, touch_b
+    ).clamp(min=1.0)
+
+    if lam0 is None:
+        ln = l1 = l2 = torch.zeros_like(kn)
+        vw = vw0
+    else:
+        # warm-start clamp + pre-application
+        ws = params.warm_start
+        ln = torch.where(c_valid, (lam0[0] * ws).clamp(min=0.0), 0.0)
+        max_f0 = fr * ln
+        l1 = _clip(torch.where(c_valid, lam0[1] * ws, 0.0), -max_f0, max_f0)
+        l2 = _clip(torch.where(c_valid, lam0[2] * ws, 0.0), -max_f0, max_f0)
+        imp = n * ln + t1 * l1 + t2 * l2
+        upd = _pair_updates(
+            imp * im_a, a_an * ln + a_a1 * l1 + a_a2 * l2,
+            imp * im_b, a_bn * ln + a_b1 * l1 + a_b2 * l2,
+        )
+        vw = vw0 + body_sum(upd)
+    q = {"n": n, "t1": t1, "t2": t2, "a_an": a_an, "a_bn": a_bn, "a_a1": a_a1,
+         "a_b1": a_b1, "a_a2": a_a2, "a_b2": a_b2, "r_a": r_a, "r_b": r_b,
+         "kn": kn, "k1": k1, "k2": k2, "target": target, "cvalid": c_valid,
+         "ln0": ln, "l10": l1, "l20": l2,
+         "im_a": im_a, "im_b": im_b, "relax": relax, "fr": fr}
+    return q, vw, cnt1
+
+
+def middle_reference(rows, ia, ib, pvf, prev, vw0, params: SolverParams):
+    """The plain PyTorch middle: scx's _middle_core over a fleet.
+
+    rows [E, 21, N], ia/ib [E, P] int, pvf [E, P] f32 broadphase validity,
+    prev [E, 4K, P] (from _warm_prev), vw0 [E, 6, N] vel/omega rows.
+    Returns (vwc [E, 7, N] — vel/omega + contact-count rows, lam [E, 12, P]
+    — ln/l1/l2 k-minor, cand/valid/trig [E, K, P] f32)."""
+    f32 = torch.float32
+    ia = ia.long()
+    ib = ib.long()
+    iab = torch.cat([ia, ib], dim=-1)                  # [E, 2P]
+    ga = _gather(rows, ia)                             # [E, 21, P]
+    gb = _gather(rows, ib)
+
+    # --- SAT narrowphase ------------------------------------------------
+    (ptx, pty, ptz, nmx, nmy, nmz, depth, vdf, cand, fr, re, tgf) = sat_reference(
+        ga, gb, pvf, params.shape_kinds
+    )
+    point, n = V3(ptx, pty, ptz), V3(nmx, nmy, nmz)
+    fr, re = fr[..., None, :], re[..., None, :]        # [E, 1, P]
+    valid_raw = vdf > 0.5
+    trig = tgf[..., None, :] > 0.5
+    c_valid = valid_raw & ~trig
+    trig_ov = valid_raw & trig
+
+    # --- warm-start slot re-association ---------------------------------
+    ln0g, l10g, l20g = _reassociate(prev, cand)
+
+    # --- solve setup ----------------------------------------------------
+    def side(g):
+        im = g[..., 14:15, :]
+        pos = V3(g[..., 15:16, :], g[..., 16:17, :], g[..., 17:18, :])
+        quat = Q4(g[..., 3:4, :], g[..., 4:5, :], g[..., 5:6, :], g[..., 6:7, :])
+        iiv = (g[..., 18:19, :], g[..., 19:20, :], g[..., 20:21, :])
+        r = pl.q_to_mat(quat)
+        iw = tuple(
+            tuple(sum(r[i][c] * iiv[c] * r[j][c] for c in range(3)) for j in range(3))
+            for i in range(3)
+        )
+        return im, pos, iw
+
+    q, vw, cnt1 = _solve_setup(
+        side(ga), side(gb), point, n, depth, c_valid, fr, re,
+        (ln0g, l10g, l20g), vw0, ia, ib, params,
+        lambda upd: _scatter_sum(upd, iab, vw0.shape[-1]),
+    )
+    vw, ln, l1, l2 = _iter_loop(q, iab, vw, params.iterations)
 
     vwc = torch.cat([vw, cnt1], dim=-2)
     lam = torch.cat([ln, l1, l2], dim=-2)
@@ -947,22 +1045,15 @@ def middle(rows, ia, ib, pvf, prev, vw0, params: SolverParams):
         raise ValueError(f"middle: unsupported device {rows.device}")
     e, _, nb = rows.shape
     p = ia.shape[-1]
-    expect = (
+    _check_operands("middle", (
         (rows, (e, _MID_ROWS, nb), torch.float32),
         (ia, (e, p), torch.int32),
         (ib, (e, p), torch.int32),
         (pvf, (e, p), torch.float32),
         (prev, (e, 4 * _K, p), torch.float32),
         (vw0, (e, 6, nb), torch.float32),
-    )
-    for x, shape, dtype in expect:
-        if x.device != rows.device or x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(
-                f"middle: expected {dtype} {shape} on {rows.device}, got "
-                f"{x.dtype} {tuple(x.shape)} on {x.device}"
-            )
-        if not x.is_contiguous():
-            raise ValueError("middle: operands must be contiguous")
+    ))
+    check_kernel_layout()
     box_only = int(tuple(params.shape_kinds) == ("box",))
     _middle_check_shape(rows.device.index, box_only, nb, p)
     lib = _build.load()
@@ -1009,6 +1100,30 @@ def middle_operands(b: PlanarBodies, params: SolverParams,
     return b, operands, (ka, kb, pair_valid, n_cand)
 
 
+def _finish_step(b: PlanarBodies, params: SolverParams, vel: V3, omega: V3, cnt,
+                 pair_valid, n_cand, c_valid, trig_ov):
+    """The back of a step: sleeping, position integration and the per-env
+    stats. cnt [E, N] is the per-body contact count."""
+    dyn = (b.inv_mass > 0) & b.active
+    low = (pl.vdot(vel, vel) < params.sleep_lin**2) & (
+        pl.vdot(omega, omega) < params.sleep_ang**2
+    )
+    timer = torch.where(dyn & low, b.sleep_timer + params.dt, 0.0)
+    asleep = (timer > params.sleep_time) & (cnt > 0)
+    zero = torch.zeros_like(vel.x)
+    vel = pl.vwhere(asleep, V3(zero, zero, zero), vel)
+    omega = pl.vwhere(asleep, V3(zero, zero, zero), omega)
+    b = replace(b, vel=vel, omega=omega, sleep_timer=timer)
+    i32 = torch.int32
+    stats = {
+        "pairs": pair_valid.sum(-1, dtype=i32),
+        "pair_overflow": (n_cand - params.max_pairs).clamp(min=0),
+        "contacts": c_valid.sum((-2, -1), dtype=i32),
+        "trigger_overlaps": trig_ov.sum((-2, -1), dtype=i32),
+    }
+    return planar_integrate_positions(b, params.dt), stats
+
+
 def step_planar_cached(b: PlanarBodies, params: SolverParams,
                        cache: PlanarCache, key_id=None, *, middle_fn=middle):
     """One fixed physics step of a fleet: integrate -> broadphase -> warm
@@ -1023,20 +1138,7 @@ def step_planar_cached(b: PlanarBodies, params: SolverParams,
     vwc, lam, candf, validf, trigf = middle_fn(*operands, params)
     vel = V3(vwc[..., 0, :], vwc[..., 1, :], vwc[..., 2, :])
     omega = V3(vwc[..., 3, :], vwc[..., 4, :], vwc[..., 5, :])
-    cnt = vwc[..., 6, :]
     c_valid = validf > 0.5
-
-    dyn = (b.inv_mass > 0) & b.active
-    low = (pl.vdot(vel, vel) < params.sleep_lin**2) & (
-        pl.vdot(omega, omega) < params.sleep_ang**2
-    )
-    timer = torch.where(dyn & low, b.sleep_timer + params.dt, 0.0)
-    asleep = (timer > params.sleep_time) & (cnt > 0)
-    zero = torch.zeros_like(vel.x)
-    vel = pl.vwhere(asleep, V3(zero, zero, zero), vel)
-    omega = pl.vwhere(asleep, V3(zero, zero, zero), omega)
-    b = replace(b, vel=vel, omega=omega, sleep_timer=timer)
-
     cache = PlanarCache(
         key_a=ka,
         key_b=kb,
@@ -1045,11 +1147,316 @@ def step_planar_cached(b: PlanarBodies, params: SolverParams,
         lam_1=torch.where(c_valid, lam[..., _K:2 * _K, :], 0.0),
         lam_2=torch.where(c_valid, lam[..., 2 * _K:, :], 0.0),
     )
-    i32 = torch.int32
-    stats = {
-        "pairs": pair_valid.sum(-1, dtype=i32),
-        "pair_overflow": (n_cand - params.max_pairs).clamp(min=0),
-        "contacts": c_valid.sum((-2, -1), dtype=i32),
-        "trigger_overlaps": (trigf > 0.5).sum((-2, -1), dtype=i32),
-    }
-    return planar_integrate_positions(b, params.dt), cache, stats
+    b, stats = _finish_step(b, params, vel, omega, vwc[..., 6, :], pair_valid,
+                            n_cand, c_valid, trigf > 0.5)
+    return b, cache, stats
+
+
+# ---------------------------------------------------------------------------
+# the middle in stages: contacts -> warm gather -> solve -> store
+# ---------------------------------------------------------------------------
+# The solve pack jac [E, _SOLVE_R, P]: rows are quantity-major, k-minor
+# (quantity q's K contact slots are rows [K q, K q + K)); a V3 takes three
+# quantities (x, y, z). The trailing rows are per pair, not per contact.
+# csrc/planar_device.cuh holds the same layout (check_kernel_layout).
+_SOLVE_V3 = ("n", "t1", "t2", "a_an", "a_bn", "a_a1", "a_b1", "a_a2",
+             "a_b2", "r_a", "r_b")
+_SOLVE_SCALAR = ("kn", "k1", "k2", "target", "cvalid", "ln0", "l10", "l20")
+_SOLVE_NQ = len(_SOLVE_V3) * 3 + len(_SOLVE_SCALAR)          # 41
+_SOLVE_PAIR = ("im_a", "im_b", "relax", "fr")
+_SOLVE_R = _SOLVE_NQ * _K + len(_SOLVE_PAIR)                 # 168
+
+
+def _solve_q(name: str) -> int:
+    """Quantity index of a scalar quantity / first component of a V3."""
+    if name in _SOLVE_V3:
+        return 3 * _SOLVE_V3.index(name)
+    return 3 * len(_SOLVE_V3) + _SOLVE_SCALAR.index(name)
+
+
+def python_layout() -> list[int]:
+    """The sizes and pack order this module assumes, in the order the CUDA
+    side reports its own (planar_layout in csrc/planar_device.cuh)."""
+    return [_K, _N_CAND, _SAT_ROWS, _SOLVE_NQ, len(_SOLVE_PAIR), _SOLVE_R] + [
+        _solve_q(name) for name in _SOLVE_V3 + _SOLVE_SCALAR
+    ]
+
+
+@functools.cache
+def check_kernel_layout() -> None:
+    """Raises unless the built kernels were compiled for this module's K,
+    candidate count, SAT rows and solve-pack layout."""
+    theirs = (ctypes.c_int * len(python_layout()))()
+    _build.load().scx_planar_layout(theirs)
+    if list(theirs) != python_layout():
+        raise RuntimeError(
+            f"planar kernels were built for layout {list(theirs)}, the Python "
+            f"side assumes {python_layout()}"
+        )
+
+
+@dataclass
+class PlanarContacts:
+    """Per-pair contact planes: [E, K, P] per contact, [E, P] per pair."""
+
+    point: V3                    # of [E, K, P]
+    normal: V3                   # of [E, K, P]
+    depth: torch.Tensor          # [E, K, P]
+    valid: torch.Tensor          # [E, K, P] bool
+    cand: torch.Tensor           # [E, K, P] i32 candidate slot (warm-start key)
+    friction: torch.Tensor       # [E, P] combined
+    restitution: torch.Tensor    # [E, P] combined
+    trigger_overlap: torch.Tensor  # [E, K, P] bool: geometrically valid but
+                                   # trigger-flagged (an event, no constraint)
+    pair_valid: torch.Tensor     # [E, P] bool (broadphase validity)
+
+
+def _check_operands(name: str, expect) -> None:
+    """Raises unless every (tensor, shape, dtype) is contiguous, of that
+    shape and type, on the first tensor's device."""
+    device = expect[0][0].device
+    for x, shape, dtype in expect:
+        if x.device != device or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {device}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+
+
+SAT_KERNEL_LAUNCHES = 0    # launches of the CUDA fleet SAT kernel, never reset here
+SOLVE_KERNEL_LAUNCHES = 0  # launches of the CUDA fleet solve kernel
+
+
+def sat_fleet(ga, gb, pvf, kinds=_ALL_KINDS):
+    """The fleet SAT narrowphase (see sat_reference for shapes; ga, gb are
+    exactly [E, 14, P]). CPU tensors take sat_reference; CUDA tensors launch
+    the hand-written kernel of csrc/planar_staged.cu on the current stream,
+    or raise."""
+    global SAT_KERNEL_LAUNCHES
+    if ga.device.type == "cpu":
+        return sat_reference(ga, gb, pvf, kinds)
+    if ga.device.type != "cuda":
+        raise ValueError(f"sat_fleet: unsupported device {ga.device}")
+    e, _, p = ga.shape
+    f32 = torch.float32
+    _check_operands("sat_fleet", (
+        (ga, (e, _SAT_ROWS, p), f32), (gb, (e, _SAT_ROWS, p), f32), (pvf, (e, p), f32),
+    ))
+    check_kernel_layout()
+    with torch.cuda.device(ga.device):  # the C side launches on the current device
+        fk = torch.empty((8, e, _K, p), dtype=f32, device=ga.device)
+        cand = torch.empty((e, _K, p), dtype=torch.int32, device=ga.device)
+        fp = torch.empty((3, e, p), dtype=f32, device=ga.device)
+        err = _build.load().scx_planar_sat(
+            ga.data_ptr(), gb.data_ptr(), pvf.data_ptr(),
+            fk.data_ptr(), cand.data_ptr(), fp.data_ptr(),
+            e, p, int(tuple(kinds) == ("box",)),
+            torch.cuda.current_stream(ga.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"SAT kernel launch failed: CUDA error {err}")
+    SAT_KERNEL_LAUNCHES += 1
+    return (*fk.unbind(0), cand, *fp.unbind(0))
+
+
+def _unpack_jac(jac):
+    """The quantities of _iter_loop from a pack [E, _SOLVE_R, P]."""
+    k = _K
+
+    def rows(q):
+        return jac[..., q * k:(q + 1) * k, :]
+
+    q = {name: V3(*(rows(_solve_q(name) + c) for c in range(3))) for name in _SOLVE_V3}
+    q.update({name: rows(_solve_q(name)) for name in _SOLVE_SCALAR})
+    q["cvalid"] = q["cvalid"] > 0.5
+    base = _SOLVE_NQ * k
+    q.update({name: jac[..., base + i:base + i + 1, :] for i, name in enumerate(_SOLVE_PAIR)})
+    return q
+
+
+def solve_reference(jac, ia, ib, vw0, iterations: int):
+    """The plain PyTorch fleet solve (scx's _solve_iter_core over a fleet):
+    `iterations` relaxed-Jacobi sweeps from the pack. jac [E, 168, P] f32,
+    ia/ib [E, P] int, vw0 [E, 6, N] vel/omega rows after the warm-start
+    pre-application. Returns (vw [E, 6, N], lam [E, 12, P]: ln/l1/l2,
+    k-minor)."""
+    iab = torch.cat([ia.long(), ib.long()], dim=-1)
+    vw, ln, l1, l2 = _iter_loop(_unpack_jac(jac), iab, vw0, iterations)
+    return vw, torch.cat([ln, l1, l2], dim=-2)
+
+
+@functools.cache
+def _solve_prepare(device_index: int) -> tuple[int, int]:
+    """Readies the solve kernel on a device once: (max P, max shared bytes)."""
+    max_p, max_smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        err = _build.load().scx_planar_solve_prepare(
+            ctypes.byref(max_p), ctypes.byref(max_smem))
+    if err != 0:
+        raise RuntimeError(f"solve kernel setup failed: CUDA error {err}")
+    return max_p.value, max_smem.value
+
+
+@functools.cache
+def _solve_check_shape(device_index: int, nb: int, p: int) -> None:
+    """Raises unless one CTA per env with P threads can hold the pack."""
+    max_p, max_smem = _solve_prepare(device_index)
+    smem = _build.load().scx_planar_solve_smem_bytes(nb, p)
+    if not (1 <= p <= max_p and nb >= 1 and smem <= max_smem):
+        raise ValueError(
+            f"solve kernel cannot take N={nb}, P={p}: one CTA per env with "
+            f"P threads (max {max_p}) and {smem} B of shared memory (max "
+            f"{max_smem} B on this device)"
+        )
+
+
+def solve_fleet(jac, ia, ib, vw0, iterations: int):
+    """The fleet solve (see solve_reference for shapes; ia/ib are i32). CPU
+    tensors take solve_reference; CUDA tensors launch the hand-written
+    kernel of csrc/planar_staged.cu on the current stream, or raise."""
+    global SOLVE_KERNEL_LAUNCHES
+    if jac.device.type == "cpu":
+        return solve_reference(jac, ia, ib, vw0, iterations)
+    if jac.device.type != "cuda":
+        raise ValueError(f"solve_fleet: unsupported device {jac.device}")
+    e, _, p = jac.shape
+    nb = vw0.shape[-1]
+    f32 = torch.float32
+    _check_operands("solve_fleet", (
+        (jac, (e, _SOLVE_R, p), f32), (ia, (e, p), torch.int32),
+        (ib, (e, p), torch.int32), (vw0, (e, 6, nb), f32),
+    ))
+    check_kernel_layout()
+    _solve_check_shape(jac.device.index, nb, p)
+    with torch.cuda.device(jac.device):
+        vw = torch.empty((e, 6, nb), dtype=f32, device=jac.device)
+        lam = torch.empty((e, 3 * _K, p), dtype=f32, device=jac.device)
+        err = _build.load().scx_planar_solve(
+            jac.data_ptr(), ia.data_ptr(), ib.data_ptr(), vw0.data_ptr(),
+            vw.data_ptr(), lam.data_ptr(), e, nb, p, int(iterations),
+            torch.cuda.current_stream(jac.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"solve kernel launch failed: CUDA error {err}")
+    SOLVE_KERNEL_LAUNCHES += 1
+    return vw, lam
+
+
+def _sat_inputs(b: PlanarBodies, ia, ib, pair_valid):
+    """The per-pair SAT operand planes: ga/gb [E, 14, P], pvf [E, P] f32
+    (an index gather where scx multiplies by one-hots)."""
+    rows = torch.stack(_sat_rows(b), dim=-2)           # [E, 14, N]
+    return (_gather(rows, ia.long()), _gather(rows, ib.long()),
+            pair_valid.to(torch.float32))
+
+
+def planar_contacts(b: PlanarBodies, ia, ib, pair_valid, kinds=_ALL_KINDS, *,
+                    sat_fn=sat_fleet) -> PlanarContacts:
+    """The contacts of the broadphase pairs, triggers split off. sat_fn is
+    the fleet SAT to run; `sat_reference` lets a caller time the plain
+    version on the card."""
+    ga, gb, pvf = _sat_inputs(b, ia, ib, pair_valid)
+    (ptx, pty, ptz, nmx, nmy, nmz, dp, vdf, cid, fr, re, tgf) = sat_fn(ga, gb, pvf, kinds)
+    valid_raw = vdf > 0.5
+    is_trigger = (tgf > 0.5)[..., None, :]
+    return PlanarContacts(
+        point=V3(ptx, pty, ptz),
+        normal=V3(nmx, nmy, nmz),
+        depth=dp,
+        valid=valid_raw & ~is_trigger,
+        cand=cid,
+        friction=fr,
+        restitution=re,
+        trigger_overlap=valid_raw & is_trigger,
+        pair_valid=pair_valid,
+    )
+
+
+def planar_gather_warm(cache: PlanarCache, ia, ib, pair_valid, cand, key_id=None):
+    """lam0 planes (ln, l1, l2) [E, K, P]: the previous step's impulses of
+    the same pair (by key) and the same candidate slot; zeros elsewhere."""
+    ka, kb = _pair_keys(ia, ib, pair_valid, key_id)
+    return _reassociate(_warm_prev(cache, ka, kb, pair_valid), cand)
+
+
+def planar_store(cache: PlanarCache, ia, ib, pair_valid, con: PlanarContacts,
+                 ln, l1, l2, key_id=None) -> PlanarCache:
+    ka, kb = _pair_keys(ia, ib, pair_valid, key_id)
+    cv = con.valid
+    return replace(
+        cache,
+        key_a=ka,
+        key_b=kb,
+        cand=torch.where(cv, con.cand, -1).to(torch.int32),
+        lam_n=torch.where(cv, ln, 0.0),
+        lam_1=torch.where(cv, l1, 0.0),
+        lam_2=torch.where(cv, l2, 0.0),
+    )
+
+
+def solve_pack(b: PlanarBodies, con: PlanarContacts, params: SolverParams,
+               ia, ib, lam0=None):
+    """The operands of the fleet solve: (jac [E, 168, P], vw0 [E, 6, N] after
+    the warm-start pre-application, cnt [E, N] contacts per body)."""
+    r = pl.q_to_mat(b.quat)
+    iiv = tuple(b.inv_inertia)
+    iw = [sum(r[i][c] * iiv[c] * r[j][c] for c in range(3))
+          for i in range(3) for j in range(3)]
+    setup = torch.stack([b.inv_mass, *b.pos, *iw], dim=-2)             # [E, 13, N]
+    ia, ib = ia.long(), ib.long()
+
+    def side(idx):
+        g = _gather(setup, idx)
+        row = lambda i: g[..., i:i + 1, :]
+        return (row(0), V3(row(1), row(2), row(3)),
+                tuple(tuple(row(4 + 3 * i + j) for j in range(3)) for i in range(3)))
+
+    vw0 = torch.stack(tuple(b.vel) + tuple(b.omega), dim=-2)
+    # Per-body sums that are the same on every run, on either device: a
+    # product with the one-hot of the pair sides' bodies, built once
+    # (scatter_add_ adds with float atomics, in no fixed order, on the card).
+    iab = torch.cat([ia, ib], dim=-1)
+    onehot = (iab[..., :, None] == torch.arange(vw0.shape[-1], device=iab.device)).to(vw0.dtype)
+    q, vw, cnt1 = _solve_setup(
+        side(ia), side(ib), con.point, con.normal, con.depth, con.valid,
+        con.friction[..., None, :], con.restitution[..., None, :],
+        lam0, vw0, ia, ib, params, lambda upd: upd @ onehot,   # [E, 2P, N]
+    )
+    shape = q["kn"].shape
+    q["cvalid"] = q["cvalid"].to(torch.float32)
+    rows = [c.expand(shape) for name in _SOLVE_V3 for c in q[name]]
+    rows += [q[name].expand(shape) for name in _SOLVE_SCALAR]
+    rows += [q[name] for name in _SOLVE_PAIR]
+    return torch.cat(rows, dim=-2), vw, cnt1[..., 0, :]
+
+
+def planar_solve(b: PlanarBodies, con: PlanarContacts, params: SolverParams,
+                 ia, ib, lam0=None, *, solve_fn=solve_fleet):
+    """Returns (vel V3 [E, N], omega V3 [E, N], (ln, l1, l2) [E, K, P], cnt
+    [E, N]). lam0 is planar_gather_warm's result, or None for a cold start.
+    solve_fn is the fleet solve to run (`solve_reference`: the plain
+    version)."""
+    jac, vw0, cnt = solve_pack(b, con, params, ia, ib, lam0)
+    vw, lam = solve_fn(jac, ia, ib, vw0, params.iterations)
+    vel = V3(vw[..., 0, :], vw[..., 1, :], vw[..., 2, :])
+    omega = V3(vw[..., 3, :], vw[..., 4, :], vw[..., 5, :])
+    return vel, omega, (lam[..., :_K, :], lam[..., _K:2 * _K, :], lam[..., 2 * _K:, :]), cnt
+
+
+def step_planar_staged(b: PlanarBodies, params: SolverParams,
+                       cache: PlanarCache, key_id=None, *,
+                       sat_fn=sat_fleet, solve_fn=solve_fleet):
+    """step_planar_cached with the middle in stages: two kernels and the
+    solve pack between them where the fused step has one kernel. Same
+    results up to the rounding of the per-body sums on the card."""
+    b = planar_integrate_velocities(b, params.dt, params.gravity)
+    ia, ib, pair_valid, n_cand = planar_broadphase(b, params.max_pairs)
+    con = planar_contacts(b, ia, ib, pair_valid, params.shape_kinds, sat_fn=sat_fn)
+    lam0 = planar_gather_warm(cache, ia, ib, pair_valid, con.cand, key_id)
+    vel, omega, lam, cnt = planar_solve(b, con, params, ia, ib, lam0, solve_fn=solve_fn)
+    cache = planar_store(cache, ia, ib, pair_valid, con, *lam, key_id)
+    b, stats = _finish_step(b, params, vel, omega, cnt, pair_valid, n_cand,
+                            con.valid, con.trigger_overlap)
+    return b, cache, stats

@@ -42,7 +42,10 @@ def _device_events(prof):
     """(busy us, kernel count, {name: [count, us]}) over a profile."""
     by_kernel = defaultdict(lambda: [0, 0.0])
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # kernels and copies; an optimizer step's annotation is mirrored onto
+        # the device timeline and would count its kernels twice
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not ev.name.startswith("Optimizer.")):
             by_kernel[ev.name][0] += 1
             by_kernel[ev.name][1] += ev.time_range.elapsed_us()
     busy = sum(us for _, us in by_kernel.values())

@@ -1,6 +1,7 @@
 """Where the time of one RL fleet step goes on the GPU.
 
     python -m scx_torch.profile_rlenv [--fleet tiles|glb_clusters] [--trace out.json]
+    python -m scx_torch.profile_rlenv --train [--obs-mode state] [--agents K] [--len 16]
 
 Builds a fleet of scx_torch.app.rlenv.FLEETS (default "tiles": 4096 envs x
 capacity 160, 128x128 RGB-D through the tile kernel, static bake) and,
@@ -16,6 +17,13 @@ after warm-up, profiles with torch.profiler:
     step, write-back and speeds; the middle kernel also alone), camera +
     cull + setup, bin, raster kernel, NaN check + reward, with device
     time, launches and the synchronized wall time of each.
+
+--train profiles one PPO train step (scx_torch.rl.make_ppo_train_step's
+parts, PPOConfig defaults, the actor-critics of scx_torch.rl.train_ppo)
+on the fleet instead, split into rollout (`--len` env steps with the
+policy between them), GAE + whitening + flattening, and the update
+(epochs x minibatches optimizer steps): device time, launches and
+synchronized wall time of each, after one warm train step.
 
 Prints JSON lines, each with the card's name and power limit. Needs a
 CUDA device.
@@ -110,10 +118,51 @@ def _stages(env, act):
     }
 
 
+def profile_train(env, length: int, base: dict) -> None:
+    """One PPO train step in three parts, each profiled alone."""
+    from scx_torch.rl import ppo
+    from scx_torch.rl import train_ppo as tex
+
+    gen = torch.Generator(device=env.device).manual_seed(0)
+    if env.obs_mode == "state":
+        params = tex.state_net_init(gen, env.STATE_OBS_DIM)
+        ac, apply = tex.state_actor_critic, tex.state_ac_apply
+    else:
+        params, ac, apply = tex.net_init(gen, env.raster.height), tex.actor_critic, tex.ac_apply
+    cfg = ppo.PPOConfig()
+    opt = lambda ps: torch.optim.Adam(ps, lr=3e-4, eps=1e-8)
+    train_step, place = ppo.make_ppo_train_step(env, ac, apply, length, opt, cfg)
+    batch, cache = place(env.state), place(env.cache)
+    params, opt_state, batch, cache, _ = train_step(params, None, batch, cache, gen)  # warm
+    rollout = env.make_trajectory_rollout(ac, length)
+    traj = rollout(batch, cache, params, gen)[2]
+    flat = ppo.flat_batch(traj, cfg)
+    parts = {
+        "rollout": lambda: rollout(batch, cache, params, gen),
+        "gae+whiten+flatten": lambda: ppo.flat_batch(traj, cfg),
+        "update": lambda: ppo._update_epochs(params, opt_state, flat, apply, opt, cfg,
+                                             ppo.draw_perms(flat, cfg, gen)),
+    }
+    for name, fn in parts.items():
+        prof, wall, _ = _profile(fn, 1)
+        busy, launches, by_kernel = _device_events(prof)
+        print(json.dumps({**base, "record": "train part", "part": name, "length": length,
+                          "rows": int(flat["adv"].numel()), "device_ms": busy / 1e3,
+                          "launches": launches, "synced_wall_ms": wall * 1e3}), flush=True)
+        for kname, (count, us) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:4]:
+            print(json.dumps({**base, "record": "train kernel", "part": name,
+                              "name": kname[:100], "launches": count, "ms": us / 1e3}),
+                  flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--fleet", default="tiles", choices=sorted(rlenv.FLEETS))
     ap.add_argument("--trace", default=None, help="write the step window's chrome trace here")
+    ap.add_argument("--train", action="store_true", help="profile one PPO train step")
+    ap.add_argument("--obs-mode", choices=("rgbd", "state"), default="rgbd", dest="obs_mode")
+    ap.add_argument("--agents", type=int, default=1)
+    ap.add_argument("--len", type=int, default=16, dest="length")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_rlenv: needs a CUDA device", file=sys.stderr)
@@ -122,6 +171,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.train:
+        env = rlenv.make_fleet(args.fleet, torch.device("cuda", 0),
+                               obs_mode=args.obs_mode, n_agents=args.agents)
+        profile_train(env, args.length, {
+            "fleet": args.fleet, "envs": env.n_envs, "obs_mode": args.obs_mode,
+            "agents": args.agents, "card": card})
+        return 0
     env = rlenv.make_fleet(args.fleet, torch.device("cuda", 0))
     act = torch.tensor([rlenv.FLEET_ACTIONS[args.fleet]], device=env.device).repeat(
         env.n_envs, 1)

@@ -1,0 +1,128 @@
+"""The CUDA fleet SAT and fleet solve kernels against their plain PyTorch
+versions, on the card.
+
+Marked `cuda`: these skip where no GPU is present. On a machine with one
+(and without JAX), run them with
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_staged.py
+The contracts are those of tests/test_torch_planar_staged.py: validity may
+differ only at graze depth (|depth| < 1e-5), floats within 5e-6 where both
+are valid, candidate ids, friction, restitution and trigger exact; the
+solve within 2e-5."""
+
+from dataclasses import replace
+
+import pytest
+import torch
+
+from scx_torch.physics import fleet
+from scx_torch.physics import planar as tp
+from scx_torch.physics.solver import SolverParams
+
+pytestmark = pytest.mark.cuda
+ALL_KINDS = ("box", "sphere", "capsule")
+CASES = [
+    (64, 24, 128, ALL_KINDS, False),
+    (16, 24, 37, ALL_KINDS, True),
+    (128, 64, 128, ("box",), False),
+    (8, 64, 256, ("box",), False),
+    (8, 512, 128, ("box",), False),
+]
+
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the staged kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _warm(gpu, envs, bodies, pairs, kinds, triggers):
+    params = SolverParams(max_pairs=pairs, iterations=6, shape_kinds=kinds)
+    if kinds == ("box",):
+        b = fleet.build_pile_fleet(envs, bodies, gpu)
+    else:
+        b = fleet.build_mixed_fleet(envs, bodies, 5, gpu)
+    if triggers:
+        b = replace(b, trigger=(torch.arange(bodies, device=gpu) % 7 == 3).expand(envs, -1))
+    cache = tp.empty_planar_cache(envs, pairs, device=gpu)
+    for _ in range(3):
+        b, cache, _ = tp.step_planar_staged(b, params, cache)
+    b = tp.planar_integrate_velocities(b, params.dt, params.gravity)
+    ia, ib, pair_valid, _ = tp.planar_broadphase(b, pairs)
+    return b, cache, params, ia, ib, pair_valid
+
+
+@pytest.mark.parametrize("envs,bodies,pairs,kinds,triggers", CASES)
+def test_sat_kernel_matches_plain(gpu, envs, bodies, pairs, kinds, triggers):
+    b, _, _, ia, ib, pair_valid = _warm(gpu, envs, bodies, pairs, kinds, triggers)
+    ga, gb, pvf = tp._sat_inputs(b, ia, ib, pair_valid)
+    before = tp.SAT_KERNEL_LAUNCHES
+    ker = [x.cpu() for x in tp.sat_fleet(ga, gb, pvf, kinds)]
+    assert tp.SAT_KERNEL_LAUNCHES == before + 1
+    ref = [x.cpu() for x in tp.sat_reference(ga, gb, pvf, kinds)]
+    flips = ker[7] != ref[7]
+    if flips.any():
+        assert ref[6].abs()[flips].max() < 1e-5
+    both = (ker[7] > 0.5) & (ref[7] > 0.5)
+    assert both.sum() > 0
+    assert torch.equal(ker[8][both], ref[8][both])
+    for got, want in zip(ker[:7], ref[:7]):
+        torch.testing.assert_close(got[both], want[both], rtol=0, atol=5e-6)
+    for got, want in zip(ker[9:], ref[9:]):
+        assert torch.equal(got, want)
+    if triggers:
+        assert ref[11].sum() > 0
+
+
+@pytest.mark.parametrize("envs,bodies,pairs,kinds,triggers", CASES)
+def test_solve_kernel_matches_plain(gpu, envs, bodies, pairs, kinds, triggers):
+    b, cache, params, ia, ib, pair_valid = _warm(gpu, envs, bodies, pairs, kinds, triggers)
+    con = tp.planar_contacts(b, ia, ib, pair_valid, kinds)
+    lam0 = tp.planar_gather_warm(cache, ia, ib, pair_valid, con.cand)
+    jac, vw0, _ = tp.solve_pack(b, con, params, ia, ib, lam0)
+    before = tp.SOLVE_KERNEL_LAUNCHES
+    vw_k, lam_k = (x.cpu() for x in tp.solve_fleet(jac, ia, ib, vw0, params.iterations))
+    assert tp.SOLVE_KERNEL_LAUNCHES == before + 1
+    vw_r, lam_r = (x.cpu() for x in tp.solve_reference(jac, ia, ib, vw0, params.iterations))
+    assert lam_r.abs().sum() > 0
+    torch.testing.assert_close(vw_k, vw_r, rtol=0, atol=2e-5)
+    torch.testing.assert_close(lam_k, lam_r, rtol=0, atol=2e-5)
+
+
+def test_staged_step_matches_fused(gpu):
+    """20 steps of both paths from one fleet: 99% of envs within 1e-5 (a
+    graze flip may move an env)."""
+    params = SolverParams(max_pairs=128, iterations=6, shape_kinds=("box",))
+    b1 = b2 = fleet.build_pile_fleet(256, 64, gpu)
+    c1 = c2 = tp.empty_planar_cache(256, 128, device=gpu)
+    for _ in range(20):
+        b1, c1, _ = tp.step_planar_cached(b1, params, c1)
+        b2, c2, _ = tp.step_planar_staged(b2, params, c2)
+    dev_env = torch.stack([(x - y).abs() for x, y in zip(b1.pos, b2.pos)]).amax((0, 2))
+    assert (dev_env <= 1e-5).float().mean() >= 0.99
+
+
+def test_kernels_reject_bad_operands(gpu):
+    b, cache, params, ia, ib, pair_valid = _warm(gpu, 4, 64, 128, ("box",), False)
+    ga, gb, pvf = tp._sat_inputs(b, ia, ib, pair_valid)
+    with pytest.raises(ValueError):
+        tp.sat_fleet(ga[:, :13].contiguous(), gb, pvf, ("box",))
+    con = tp.planar_contacts(b, ia, ib, pair_valid, ("box",))
+    jac, vw0, _ = tp.solve_pack(b, con, params, ia, ib, None)
+    with pytest.raises(ValueError):
+        tp.solve_fleet(jac, ia.long(), ib, vw0, 6)
+    wide = torch.zeros((4, 168, 2048), device=gpu)
+    idx = torch.zeros((4, 2048), dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError, match="cannot take"):
+        tp.solve_fleet(wide, idx, idx, vw0, 6)
+
+
+def test_kernels_take_an_empty_fleet(gpu):
+    """No envs: neither wrapper launches a zero-sized grid."""
+    ga = torch.zeros(0, 14, 8, device=gpu)
+    sat = tp.sat_fleet(ga, ga, torch.zeros(0, 8, device=gpu), ("box",))
+    assert [tuple(x.shape) for x in sat] == [(0, 4, 8)] * 9 + [(0, 8)] * 3
+    idx = torch.zeros(0, 8, dtype=torch.int32, device=gpu)
+    vw, lam = tp.solve_fleet(torch.zeros(0, 168, 8, device=gpu), idx, idx,
+                             torch.zeros(0, 6, 4, device=gpu), 6)
+    assert tuple(vw.shape) == (0, 6, 4) and tuple(lam.shape) == (0, 12, 8)

@@ -26,6 +26,9 @@ def test_port_imports_neither_jax_nor_scx():
     mods = ["scx_torch"] + [m.name for m in pkgutil.walk_packages(scx_torch.__path__,
                                                                    "scx_torch.")]
     assert "scx_torch.app.rlenv" in mods and len(mods) > 30
+    for new in ("scx_torch.rl.gae", "scx_torch.rl.ppo", "scx_torch.rl.gymenv",
+                "scx_torch.rl.train_ppo"):
+        assert new in mods, new
     out = subprocess.run([sys.executable, "-c", _PROBE, *mods, "chip_smoke"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=True)
     assert out.stdout.strip() == "", f"loaded: {out.stdout.strip()}"

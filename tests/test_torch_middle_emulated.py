@@ -1,7 +1,7 @@
 """The CUDA middle kernel's source, run on the CPU against middle_reference.
 
 The device part of csrc/planar_middle.cu (everything above its host entry
-points) is plain C++ apart from a few CUDA keywords. Built with g++ and a
+points, with the shared header csrc/planar_device.cuh) is plain C++ apart from a few CUDA keywords. Built with g++ and a
 small shim (one host thread per CUDA thread, std::barrier for
 __syncthreads, one block at a time), it runs here without a GPU, so the
 kernel's logic is checked on every run; on the card tests/
@@ -91,6 +91,8 @@ def emulated(tmp_path_factory):
     d = tmp_path_factory.mktemp("emu")
     (d / "cuda_runtime.h").write_text("")
     (d / "device_part.inc").write_text(SRC.read_text().split("// ---- host entry points")[0])
+    for header in SRC.parent.glob("*.cuh"):  # the device code shared between the kernels
+        shutil.copy(header, d)
     (d / "emu.cpp").write_text(_SHIM)
     lib = d / "libemu.so"
     subprocess.run(
