@@ -40,7 +40,9 @@ fleet -- in phases and exits non-zero at the first failure:
      cubes and a ground slab (no tile list overflows), each held to scx's
      contract (tests/test_render_clusters.py): mat and covered equal on
      every pixel, depth within 1e-5, color and uv within 1e-4; and the
-     triangles pass A evaluated per tile must agree;
+     triangles pass A evaluated per tile must agree; prints the cluster
+     kernel's CTAs per tile, and each kernel's bound beside the one
+     earlier versions printed (see raster_bound);
   6. render path: render_frame_baked, then render_frame, on the city
      frame: 30 timed frames each after warm-up, exactly one cluster-kernel
      launch per frame, no dropped cluster, finite rgb, some pixel
@@ -52,7 +54,7 @@ fleet -- in phases and exits non-zero at the first failure:
      printed) and step once; that step's observation setup goes through
      its binning, then rasterize_tiles_batched / rasterize_clusters_batched
      and their plain versions, over every env, held to the contract of
-     phase 5, with equal work per tile;
+     phase 5, with equal work per tile, printed as phase 5 prints;
   8. RL path: per fleet, 2 warm steps, rollout(actions, 10) twice (the
      faster counts) and 10 step() calls, printing rl_env_steps_per_sec for
      both; it fails unless each step launched one batched raster kernel
@@ -279,15 +281,81 @@ def bound(bytes_moved: float, ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def raster_bound(work, params, list_bytes: int, envs: int = 1):
+def raster_bound(work, pass_a_pixels, params, list_bytes: int, envs: int = 1):
     """Bound of a raster kernel from the triangles its pass A evaluated per
-    tile (`work`, over every env's tiles): their setup rows and the lists
-    read once, the G-buffer written once; PASS_A_OPS per (triangle, pixel
-    of its tile) and PASS_B_OPS per pixel."""
+    tile (`work`, over every env's tiles) and the pixels of their tiles
+    inside their screen boxes (`pass_a_pixels`, see `box_pixels`): their
+    setup rows and the lists read once, the G-buffer written once;
+    PASS_A_OPS per (triangle, pixel of its tile inside its box) and
+    PASS_B_OPS per pixel. Returns (ms, by, the earlier ms): the earlier
+    bound counted every pixel of the tile for each evaluated triangle."""
     evaluated = int(work.sum())
     pixels = envs * params.tiles_y * params.tile_h * params.tiles_x * params.tile_w
-    ops = evaluated * params.tile_h * params.tile_w * PASS_A_OPS + pixels * PASS_B_OPS
-    return bound(evaluated * 32 * 4 + list_bytes + pixels * 7 * 4, ops)
+    moved = evaluated * 32 * 4 + list_bytes + pixels * 7 * 4
+    ms, by = bound(moved, pass_a_pixels * PASS_A_OPS + pixels * PASS_B_OPS)
+    old = bound(moved, evaluated * params.tile_h * params.tile_w * PASS_A_OPS
+                + pixels * PASS_B_OPS)[0]
+    return ms, by, old
+
+
+def box_pixels(aabb, tiles, params):
+    """Pixel centres of tile `tiles` [...] inside the screen box aabb [...,
+    4] (x0, y0, x1, y1): pass A cannot find a triangle at a pixel outside
+    its vertices' box (a finer test, such as the kernel's per-warp reject,
+    can do with fewer)."""
+    import torch
+
+    box = torch.nan_to_num(aabb.double())
+
+    def span(lo, hi, t, size):
+        first = torch.maximum(torch.ceil(lo - 0.5), (t * size).double())
+        last = torch.minimum(torch.floor(hi - 0.5), (t * size + size - 1).double())
+        return torch.clamp(last - first + 1, min=0)
+
+    tx, ty = tiles % params.tiles_x, tiles // params.tiles_x
+    return (span(box[..., 0], box[..., 2], tx, params.tile_w)
+            * span(box[..., 1], box[..., 3], ty, params.tile_h))
+
+
+def cluster_pass_a_pixels(setup, aabb, ids, walked, params) -> int:
+    """Sum over tiles of the pixels inside the boxes of the triangles pass A
+    evaluates (those that can cover, of the clusters in the `walked` first
+    slots of each list, as the plain version reports them). setup [E, T,
+    F], aabb [E, T, 4], ids [E, tiles, KC], walked [E, tiles]."""
+    import torch
+
+    from scx_torch.ops import raster as tr
+
+    e, n_tiles, _ = ids.shape
+    dev = setup.device
+    tiles = torch.arange(n_tiles, device=dev)[None, :, None]
+    lane = torch.arange(32, device=dev)
+    env = torch.arange(e, device=dev)[:, None, None]
+    total = 0.0
+    for k in range(int(walked.max()) if walked.numel() else 0):
+        tri = ids[..., k].long()[..., None] * 32 + lane  # [E, tiles, 32]
+        live = tr.can_cover(setup[env, tri]) & (k < walked)[..., None]
+        total += float((box_pixels(aabb[env, tri], tiles, params) * live).sum())
+    return int(total)
+
+
+def tile_pass_a_pixels(setup, aabb, valid, params) -> int:
+    """The same for the tile kernels: each tile's first K binned triangles
+    (its overlapping ones in triangle order, as bin_triangles lists them)
+    that can cover. setup [E, T, F], aabb [E, T, 4], valid [E, T]."""
+    import torch
+
+    from scx_torch.ops import raster as tr
+    from scx_torch.render import pipeline as rp
+
+    tiles = torch.arange(params.n_tiles, device=setup.device)[:, None]
+    total = 0.0
+    for i in range(0, setup.shape[0], 256):  # envs in chunks, to bound memory
+        ov = rp.tile_overlap(aabb[i:i + 256], valid[i:i + 256], params)  # [e, tiles, T]
+        listed = ov & (torch.cumsum(ov.int(), -1) <= params.max_tris_per_tile)
+        listed &= tr.can_cover(setup[i:i + 256])[:, None, :]
+        total += float((box_pixels(aabb[i:i + 256, None], tiles, params) * listed).sum())
+    return int(total)
 
 
 def check_gbuffer(tag, got, ref):
@@ -367,6 +435,7 @@ def main():
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     card = card_line()
     print(card, flush=True)
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
@@ -518,24 +587,28 @@ def main():
     ids, counts, zmin, _ = trc.frame_cluster_lists(setup, aabb, valid, fparams)
     kc = fparams.max_clusters_per_tile
     work_k = torch.zeros(fparams.n_tiles, dtype=torch.int32, device=dev)
-    work_p = torch.zeros_like(work_k)
+    work_p, walked = torch.zeros_like(work_k), torch.zeros_like(work_k)
     got = trc.rasterize_clusters(setup, ids, counts, fparams, kc, zmin, work_k)
-    ref = trc.rasterize_clusters_reference(setup, ids, counts, fparams, kc, zmin, work_p)
+    ref = trc.rasterize_clusters_reference(setup, ids, counts, fparams, kc, zmin, work_p,
+                                           walked)
     err_cl, differ = check_gbuffer("rasterize_clusters", got, ref)
     if not torch.equal(work_k, work_p):
         fail("rasterize_clusters: pass A's work per tile differs from the plain version's")
     cl_ms = cuda_ms(lambda: trc.rasterize_clusters(setup, ids, counts, fparams, kc, zmin), 20)
     cl_plain_ms = cuda_ms(
         lambda: trc.rasterize_clusters_reference(setup, ids, counts, fparams, kc, zmin), 2)
-    cl_bound, cl_by = raster_bound(work_k, fparams, 4 * (ids.numel() + counts.numel()
-                                                         + zmin.numel()))
+    cl_bound, cl_by, cl_old = raster_bound(
+        work_k, cluster_pass_a_pixels(setup[None], aabb[None], ids[None], walked[None], fparams),
+        fparams, 4 * (ids.numel() + counts.numel() + zmin.numel()))
     print(json.dumps({
         "check": "rasterize_clusters", "width": fparams.width, "height": fparams.height,
         "tiles": fparams.n_tiles, "max_tris": fparams.max_tris, "kc": kc,
-        "listed_clusters": int(counts.sum()), "evaluated_tris": int(work_k.sum()),
-        "max_tile_evaluated_tris": int(work_k.max()),
+        "ctas_per_tile": trc.ctas_per_tile(fparams.n_tiles, fparams, sms),
+        "listed_clusters": int(counts.sum()), "walked_slots": int(walked.sum()),
+        "evaluated_tris": int(work_k.sum()), "max_tile_evaluated_tris": int(work_k.max()),
         "max_abs_err": err_cl, "pixels_differing": differ, "ms": cl_ms,
-        "plain_ms": cl_plain_ms, "bound_ms": cl_bound, "bound_by": cl_by, "card": card,
+        "plain_ms": cl_plain_ms, "bound_ms": cl_bound, "bound_by": cl_by,
+        "bound_ms_whole_tile": cl_old, "card": card,
     }), flush=True)
 
     cdraws, cpool, cvp, cparams = cube_frame(dev)
@@ -552,13 +625,16 @@ def main():
         fail("rasterize_tiles: work differs from the plain version's, or nothing covered")
     t_ms = cuda_ms(lambda: tr.rasterize_tiles(binned, cparams, tcounts), 20)
     t_plain_ms = cuda_ms(lambda: tr.rasterize_tiles_reference(binned, cparams, tcounts), 3)
-    t_bound, t_by = raster_bound(twork_k, cparams, 4 * tcounts.numel())
+    t_bound, t_by, t_old = raster_bound(
+        twork_k, tile_pass_a_pixels(csetup[None], caabb[None], cvalid[None], cparams), cparams,
+        4 * tcounts.numel())
     print(json.dumps({
         "check": "rasterize_tiles", "width": cparams.width, "height": cparams.height,
         "tiles": cparams.n_tiles, "tris_in": int(cvalid.sum()),
         "max_tile_occupancy": int(tcounts.max()), "evaluated_tris": int(twork_k.sum()),
         "max_abs_err": err_t, "pixels_differing": differ, "ms": t_ms,
-        "plain_ms": t_plain_ms, "bound_ms": t_bound, "bound_by": t_by, "card": card,
+        "plain_ms": t_plain_ms, "bound_ms": t_bound, "bound_by": t_by,
+        "bound_ms_whole_tile": t_old, "card": card,
     }), flush=True)
 
     # ---- 6. the render path ---------------------------------------------
@@ -625,16 +701,18 @@ def main():
         setup, aabb, valid, p = env.setup_obs(env.state, env.baked)
         e = env.n_envs
         work_k = torch.zeros((e, p.n_tiles), dtype=torch.int32, device=dev)
-        work_p = torch.zeros_like(work_k)
+        work_p, walked = torch.zeros_like(work_k), torch.zeros_like(work_k)
         if p.use_clusters:
             kname, kc = "rasterize_clusters_batched", p.max_clusters_per_tile
             ids, counts, zmin, dropped = trc.frame_cluster_lists(setup, aabb, valid, p)
             kernel = lambda w=None: trc.rasterize_clusters_batched(setup, ids, counts, p, kc,
                                                                    zmin, w)
             plain = lambda w=None: trc.rasterize_clusters_batched_reference(
-                setup, ids, counts, p, kc, zmin, w)
+                setup, ids, counts, p, kc, zmin, w, walked=None if w is None else walked)
             list_bytes = 4 * (ids.numel() + counts.numel() + zmin.numel())
-            extra = {"listed_clusters": int(counts.sum()), "cluster_drop": int(dropped.sum())}
+            extra = {"listed_clusters": int(counts.sum()), "cluster_drop": int(dropped.sum()),
+                     "ctas_per_tile": trc.ctas_per_tile(e * p.n_tiles, p, sms)}
+            pass_a = lambda: cluster_pass_a_pixels(setup, aabb, ids, walked, p)
         else:
             kname = "rasterize_tiles_batched"
             binned, counts = rp.bin_triangles_batched(setup, aabb, valid, p)
@@ -643,13 +721,14 @@ def main():
             list_bytes = 4 * counts.numel()
             extra = {"max_tile_occupancy": int(counts.max()),
                      "tile_overflow": int((counts >= p.max_tris_per_tile).sum())}
+            pass_a = lambda: tile_pass_a_pixels(setup, aabb, valid, p)
         got, ref = kernel(work_k), plain(work_p)
         err, differ = check_gbuffer(kname, got, ref)
         if not torch.equal(work_k, work_p) or not ref["covered"].any():
             fail(f"{kname}: pass A's work per tile differs from the plain version's, "
                  "or nothing covered")
         k_ms, p_ms = cuda_ms(kernel, 20), cuda_ms(plain, 2)
-        b_ms, b_by = raster_bound(work_k, p, list_bytes, envs=e)
+        b_ms, b_by, b_old = raster_bound(work_k, pass_a(), p, list_bytes, envs=e)
         batched[kname] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                           "bound_by": b_by}
         print(json.dumps({
@@ -657,7 +736,8 @@ def main():
             "tile": [p.tile_h, p.tile_w], "max_tris": p.max_tris,
             "evaluated_tris": int(work_k.sum()), "max_tile_evaluated_tris": int(work_k.max()),
             **extra, "max_abs_err": err, "pixels_differing": differ, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "card": card,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_ms_whole_tile": b_old,
+            "card": card,
         }), flush=True)
 
     # ---- 8. the RL path: reset/step/rollout at full width ------------------

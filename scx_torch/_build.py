@@ -112,7 +112,7 @@ def load() -> ctypes.CDLL:
     lib.scx_planar_solve_smem_bytes.restype = ctypes.c_longlong
     lib.scx_planar_solve_prepare.argtypes = [ctypes.POINTER(i32), ctypes.POINTER(i32)]
     lib.scx_planar_solve_prepare.restype = i32
-    lib.scx_raster_clusters.argtypes = [vp] * 7 + [i32] * 8 + [vp]
+    lib.scx_raster_clusters.argtypes = [vp] * 7 + [i32] * 9 + [vp]
     lib.scx_raster_clusters.restype = i32
     lib.scx_raster_tiles.argtypes = [vp] * 5 + [i32] * 6 + [vp]
     lib.scx_raster_tiles.restype = i32

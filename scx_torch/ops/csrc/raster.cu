@@ -1,31 +1,19 @@
 // The raster kernels of the render path and of the RL fleet's
 // observations, for Hopper (sm_90a).
 //
-// Replaces the TPU kernels
-//   scx/ops/raster_clusters.py::rasterize_clusters (body _tile_body),
-//   scx/ops/raster_clusters.py::rasterize_clusters_batched (body
-//     _kernel_batched),
-//   scx/ops/raster.py::rasterize_tiles (body _raster_tile_body), and
-//   scx/ops/raster.py::rasterize_tiles_batched (the same body over envs).
-// All four share one scheme, and here one kernel template and one
-// per-pixel device function; a single scene is a fleet of one env. Per
-// screen tile of each env,
-//   pass A walks the tile's list in order (clusters of 32 setup rows in
-//          slot order, or the tile's first min(count, K) binned triangles)
-//          and keeps, per pixel, the depth and code of the nearest covering
-//          triangle: covered (l0, l1 >= 0, l0 + l1 <= 1), z >= 0 and
-//          z < depth, strictly, so the lowest code wins ties -- exactly the
-//          winners of the TPU kernels' chunk min/argmin + strict '<';
+// Two kernels share the per-pixel rules (every plane is evaluated as
+// (a*px + b*py) + c, the file is built with --fmad=false and IEEE division,
+// so each value rounds as in the plain versions). Per screen tile of each
+// env (a single scene is a fleet of one env),
+//   pass A walks the tile's list in order and keeps, per pixel, the depth
+//          and code of the nearest covering triangle: covered (l0, l1 >= 0,
+//          l0 + l1 <= 1), z >= 0 and z < depth, strictly, so the lowest code
+//          wins ties -- exactly the winners of the TPU kernels' chunk
+//          min/argmin + strict '<';
 //   pass B evaluates the winner's 1/w, rgb and uv planes at the pixel
 //          (perspective-correct: attr * 1/max(iw, 1e-12)) and its material.
-// The cluster kernel stops pass A at the first slot whose cluster min depth
-// is >= the tile's max depth over all pixels of the padded tile
-// (raster_clusters.py:194-196): the lists are near-to-far, so nothing after
-// it can win a pixel. The test is kept exactly as written. The env-batched
-// TPU kernel tests a 15-bit floor-quantized zmin instead
-// (raster_clusters.py:503-511): with quant_z the kernel computes it, in
-// f32, as floor(clip(zmin, 0, 1) * 32767) * f32(1 / 32767). It decides
-// where the exit fires, so the work per tile, and is kept as it rounds.
+// Triangles whose l0 plane is (0, 0, c < 0) -- the rows setup marks invalid
+// -- cannot cover a pixel: they are skipped and not counted as work.
 //
 // In/out (all contiguous; E envs, E = 1 for a single scene):
 //   clusters: setup [E, C*32, 32] f32, ids [E, tiles, KC] i32 (cluster ids
@@ -38,30 +26,96 @@
 // The plain PyTorch versions are scx_torch.ops.raster_clusters.
 // rasterize_clusters_reference / rasterize_clusters_batched_reference and
 // scx_torch.ops.raster.rasterize_tiles_reference /
-// rasterize_tiles_batched_reference; every plane is evaluated as
-// (a*px + b*py) + c and the file is built with --fmad=false and IEEE
-// division, so each value rounds as there.
+// rasterize_tiles_batched_reference.
 //
-// Design: one CTA per (env, tile) of the lattice (blockIdx.x = env * tiles
-// + tile, tile = ty * tiles_x + tx), each thread owning PPT pixels (pixel
-// p = i * blockDim + thread) whose depth and winner code stay in
-// registers. Each list entry's 32 setup rows (4 KB) are
-// staged in shared memory and read by every thread as broadcasts. The hz
-// test is one __syncthreads_or over "some pixel of mine is deeper than the
-// cluster's zmin". Triangles whose l0 plane is (0, 0, c < 0) -- the rows
-// setup marks invalid -- cannot cover a pixel and are skipped whole.
+// ---- cluster_raster_kernel ----
+// Replaces scx/ops/raster_clusters.py::rasterize_clusters (body _tile_body)
+// and rasterize_clusters_batched (body _kernel_batched). Pass A walks the
+// tile's cluster list (32 setup rows per entry, in slot order) and stops at
+// the first slot whose cluster min depth is >= the tile's max depth over
+// all pixels of the padded tile (raster_clusters.py:194-196): the lists are
+// near-to-far, so nothing after it can win a pixel. The test is kept
+// exactly as written, tile-wide. The env-batched TPU kernel tests a 15-bit
+// floor-quantized zmin instead (raster_clusters.py:503-511): with quant_z
+// the kernel computes it, in f32, as floor(clip(zmin, 0, 1) * 32767) *
+// f32(1 / 32767). It decides where the exit fires, so the work per tile,
+// and is kept as it rounds.
 //
-// What bounds it on this card: arithmetic. Pass A costs ~12 flops per
-// (triangle, pixel) over every listed triangle up to the hz exit; the
-// bytes are the G-buffer written once (28 B per pixel) and the staged
-// rows. At 720p there are 120 tiles, so the grid fills under one wave of
-// the H100's 132 SMs at one 512-thread CTA each; the RL fleet's
-// observations give 8,192 CTAs (4096 envs x 2 tiles of 64x128, or 1024
-// envs x 8 tiles of 16x128), which fill the card. A simple kernel, not
-// tuned.
+// What bounds it on this card: one tile. On the 720p city frame one tile of
+// 120 evaluates 7,097 of the frame's 30,985 triangles and never exits (it
+// holds sky), and with one CTA per tile it ran alone on one SM, every
+// triangle tested at all 8,192 of its pixels. The design:
+//   1. A tile is a thread-block cluster of `csize` CTAs (the wrapper picks
+//      it from the grid: several for a single frame's ~100 tiles, 1 for a
+//      fleet's thousands). Each CTA owns some of the tile's warp rectangles
+//      (interleaved, for balance); all walk the same entries. The hz exit
+//      stays tile-wide: each CTA's __syncthreads_or is published in its
+//      shared memory, a cluster barrier orders it, and a CTA none of whose
+//      pixels is deeper reads the others' through distributed shared memory
+//      (mapa). A CTA that has a deeper pixel knows the answer and defers its
+//      barrier wait until after the entry, so the barrier's latency hides
+//      behind the work. The exit fires at the same slot as the TPU kernel's,
+//      and `work` is written once per tile.
+//   2. Each warp owns a compact rectangle of 8 rows x 32 columns (one column
+//      and 8 rows per thread), so a small triangle reaches one or two warps.
+//   3. Exact per-warp rejects (raster_reject.cuh): lane j tests triangle j
+//      of the entry against the warp's rectangle and the warp's largest
+//      current depth; one ballot leaves the triangles that can pass at some
+//      pixel, and the warp tests only those, in order. Rejects change no
+//      result and no `work` count.
+//   4. Pipelined staging: the next entry's pass-A planes (9 of the 32
+//      fields, field-major so the lane-parallel test reads without bank
+//      conflicts) are copied with cp.async into the second of two shared
+//      buffers while the current one is evaluated, as the TPU kernel kept
+//      two DMAs in flight (raster_clusters.py:161-192). Nothing past the
+//      exit is staged.
+// Tensor cores do not help: coverage must be exact in f32.
+//
+// ---- tile_raster_kernel ----
+// Replaces scx/ops/raster.py::rasterize_tiles (body _raster_tile_body) and
+// rasterize_tiles_batched (the same body over envs): pass A over the tile's
+// first min(count, K) binned triangles. One CTA per (env, tile) of the
+// lattice (blockIdx.x = env * tiles + tile, tile = ty * tiles_x + tx), each
+// thread owning PPT pixels (pixel p = i * blockDim + thread) whose depth and
+// winner code stay in registers; each block of 32 setup rows (4 KB) is
+// staged in shared memory and read by every thread as broadcasts. What
+// bounds it: arithmetic, ~12 flops per (triangle, pixel) over every listed
+// triangle; the RL fleet gives 8,192 CTAs (4096 envs x 2 tiles of 64x128),
+// which fill the card. A simple kernel, not tuned.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "raster_reject.cuh"
+
+#ifndef SCX_RASTER_SHIM  // the CPU tests' shim defines these five itself
+// Starts an asynchronous 4-byte copy from device memory into shared memory.
+__device__ __forceinline__ void copy_async_f32(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+// Waits for every copy this thread started.
+__device__ __forceinline__ void copy_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+// The two halves of the thread-block cluster's barrier: what a thread wrote
+// before its arrive is visible to every thread of the cluster after its wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+// Reads the int at `local` in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ int cluster_load(const int* local, int rank) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(local);
+  unsigned remote;
+  int v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(a), "r"(rank));
+  asm volatile("ld.shared::cluster.s32 %0, [%1];" : "=r"(v) : "r"(remote) : "memory");
+  return v;
+}
+#endif
 
 namespace {
 
@@ -69,9 +123,13 @@ constexpr int N_FIELDS = 32;
 constexpr int F_L0 = 0, F_L1 = 3, F_Z = 6, F_IW = 9, F_COL = 12, F_UV = 21, F_MAT = 27;
 constexpr int CLUSTER = 32;  // setup rows per staged block (one cluster)
 constexpr int N_ATTR = 6;
-constexpr int PPT = 16;           // pixels per thread
-constexpr int MAX_THREADS = 512;  // so a tile holds at most 8192 pixels
+constexpr int PPT = 16;           // pixels per thread (tile kernel)
+constexpr int MAX_THREADS = 512;  // so a tile kernel's tile holds at most 8192 pixels
 constexpr float ZQ = 32767.0f;    // 15-bit zmin quantization of the batched TPU kernel
+constexpr int RECT_H = 8;         // rows of a warp's rectangle (cluster kernel), 32 columns
+constexpr int PASS_A_FIELDS = 9;  // the l0, l1 and z planes
+constexpr int MAX_CTAS_PER_TILE = 8;  // the portable cluster size
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float plane(const float* s, int f, float px, float py) {
   return s[f] * px + s[f + 1] * py + s[f + 2];
@@ -107,18 +165,15 @@ __device__ __forceinline__ bool never_covers(const float* s) {
   return s[F_L0] == 0.f && s[F_L0 + 1] == 0.f && s[F_L0 + 2] < 0.f;
 }
 
-template <bool CLUSTERS>
 __global__ void __launch_bounds__(MAX_THREADS)
-raster_kernel(const float* __restrict__ rows, const int* __restrict__ ids,
-              const int* __restrict__ counts, const float* __restrict__ zmin,
-              float* __restrict__ depth_out, float* __restrict__ attr_out, int* __restrict__ work,
-              int n_clusters, int n_tiles, int ntx, int th, int tw, int hp, int wp, int kmax,
-              int quant_z) {
+tile_raster_kernel(const float* __restrict__ rows, const int* __restrict__ counts,
+                   float* __restrict__ depth_out, float* __restrict__ attr_out,
+                   int* __restrict__ work, int n_tiles, int ntx, int th, int tw, int hp, int wp,
+                   int kmax) {
   __shared__ float buf[CLUSTER * N_FIELDS];
   const int g = blockIdx.x;  // env * n_tiles + tile
   const int env = g / n_tiles, tile = g - env * n_tiles;
   const int ty = tile / ntx, tx = tile - ty * ntx;
-  const size_t env_rows = CLUSTERS ? (size_t)env * n_clusters * CLUSTER : 0;
   const int npix = th * tw;
   const int nthr = blockDim.x, t = threadIdx.x;
 
@@ -135,28 +190,11 @@ raster_kernel(const float* __restrict__ rows, const int* __restrict__ ids,
 
   int cnt = counts[g];
   cnt = cnt < 0 ? 0 : (cnt > kmax ? kmax : cnt);
-  const int n_blocks = CLUSTERS ? cnt : (cnt + CLUSTER - 1) / CLUSTER;
+  const int n_blocks = (cnt + CLUSTER - 1) / CLUSTER;
   int evaluated = 0;
   for (int b = 0; b < n_blocks; ++b) {
-    const float* src;
-    int n_tri;
-    if (CLUSTERS) {
-      const int cid = ids[(size_t)g * kmax + b];
-      if (cid < 0 || cid >= n_clusters) __trap();
-      // hierarchical z: stop when zmin >= the max depth of every pixel
-      float my_max = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < PPT; ++i)
-        if (i * nthr + t < npix) my_max = fmaxf(my_max, depth[i]);
-      float zc = zmin[(size_t)env * n_clusters + cid];
-      if (quant_z) zc = floorf(fminf(fmaxf(zc, 0.f), 1.f) * ZQ) * (float)(1.0 / 32767.0);
-      if (!__syncthreads_or(!(zc >= my_max))) break;
-      src = rows + (env_rows + (size_t)cid * CLUSTER) * N_FIELDS;
-      n_tri = CLUSTER;
-    } else {
-      src = rows + ((size_t)g * kmax + (size_t)b * CLUSTER) * N_FIELDS;
-      n_tri = cnt - b * CLUSTER < CLUSTER ? cnt - b * CLUSTER : CLUSTER;
-    }
+    const float* src = rows + ((size_t)g * kmax + (size_t)b * CLUSTER) * N_FIELDS;
+    const int n_tri = cnt - b * CLUSTER < CLUSTER ? cnt - b * CLUSTER : CLUSTER;
     for (int k = t; k < n_tri * N_FIELDS; k += nthr) buf[k] = src[k];
     __syncthreads();
     for (int j = 0; j < n_tri; ++j) {
@@ -176,16 +214,7 @@ raster_kernel(const float* __restrict__ rows, const int* __restrict__ ids,
     const int p = i * nthr + t;
     if (p >= npix) continue;
     float out[N_ATTR] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (win[i] >= 0) {
-      const float* s;
-      if (CLUSTERS) {
-        const int cid = ids[(size_t)g * kmax + win[i] / CLUSTER];
-        s = rows + (env_rows + (size_t)cid * CLUSTER + win[i] % CLUSTER) * N_FIELDS;
-      } else {
-        s = rows + ((size_t)g * kmax + win[i]) * N_FIELDS;
-      }
-      resolve(s, px[i], py[i], out);
-    }
+    if (win[i] >= 0) resolve(rows + ((size_t)g * kmax + win[i]) * N_FIELDS, px[i], py[i], out);
     const size_t plane_px = (size_t)hp * wp;
     const size_t at = (size_t)(ty * th + p / tw) * wp + tx * tw + p % tw;
     depth_out[(size_t)env * plane_px + at] = depth[i];
@@ -201,28 +230,200 @@ int threads_for(int th, int tw) {
   return (n + 31) / 32 * 32;
 }
 
+// ---- the cluster kernel ---------------------------------------------------
+
+// What one CTA of a tile's cluster keeps in shared memory.
+struct ClusterShared {
+  float planes[2][PASS_A_FIELDS][CLUSTER];  // pass-A planes of two entries, field-major
+  int deeper[2];  // this CTA's hz vote ("a pixel of mine is deeper"), by entry parity
+};
+
+__device__ __forceinline__ int checked_cluster(int cid, int n_clusters) {
+  if (cid < 0 || cid >= n_clusters) __trap();
+  return cid;
+}
+
+// Starts the copy of one entry's pass-A planes (fields 0-8 of its 32 rows)
+// into dst, transposed; every thread of the CTA takes a share.
+__device__ __forceinline__ void stage_planes(float (*dst)[CLUSTER], const float* src) {
+  for (int k = threadIdx.x; k < PASS_A_FIELDS * CLUSTER; k += blockDim.x) {
+    const int j = k / PASS_A_FIELDS, f = k - j * PASS_A_FIELDS;
+    copy_async_f32(&dst[f][j], src + j * N_FIELDS + f);
+  }
+}
+
+// One CTA (cluster rank `rank` of `csize`) of tile g = env * n_tiles + tile.
+__device__ __forceinline__ void cluster_tile(
+    ClusterShared& sh, int g, int rank, int csize, const float* __restrict__ rows,
+    const int* __restrict__ ids, const int* __restrict__ counts,
+    const float* __restrict__ zmin, float* __restrict__ depth_out,
+    float* __restrict__ attr_out, int* __restrict__ work, int n_clusters, int n_tiles, int ntx,
+    int th, int tw, int hp, int wp, int kmax, int quant_z) {
+  const int env = g / n_tiles, tile = g - env * n_tiles;
+  const int ty = tile / ntx, tx = tile - ty * ntx;
+  const size_t env_rows = (size_t)env * n_clusters * CLUSTER;
+  const int lane = threadIdx.x % 32;
+  // this warp's rectangle: warp w of the tile's row-major lattice of 8x32
+  // rectangles, the tile's warps dealt out to its CTAs in turn
+  const int w = rank + csize * (threadIdx.x / 32), per_row = tw / 32;
+  const int x0 = tx * tw + (w % per_row) * 32, y0 = ty * th + (w / per_row) * RECT_H;
+  const float px = (float)(x0 + lane) + 0.5f;
+  const PixelRect rect = {(float)x0 + 0.5f, (float)(x0 + 31) + 0.5f, (float)y0 + 0.5f,
+                          (float)(y0 + RECT_H - 1) + 0.5f};
+  float depth[RECT_H];
+  int win[RECT_H];
+#pragma unroll
+  for (int i = 0; i < RECT_H; ++i) {
+    depth[i] = 1.f;
+    win[i] = -1;
+  }
+
+  int cnt = counts[g];
+  cnt = cnt < 0 ? 0 : (cnt > kmax ? kmax : cnt);
+  const int* list = ids + (size_t)g * kmax;
+  int cid = cnt > 0 ? checked_cluster(list[0], n_clusters) : 0;
+  if (cnt > 0) stage_planes(sh.planes[0], rows + (env_rows + (size_t)cid * CLUSTER) * N_FIELDS);
+  int evaluated = 0;
+  for (int b = 0; b < cnt; ++b) {
+    const int s = b & 1;
+    float my_max = depth[0];
+#pragma unroll
+    for (int i = 1; i < RECT_H; ++i) my_max = fmaxf(my_max, depth[i]);
+    float zc = zmin[(size_t)env * n_clusters + cid];
+    if (quant_z) zc = floorf(fminf(fmaxf(zc, 0.f), 1.f) * ZQ) * (float)(1.0 / 32767.0);
+    copy_async_wait_all();  // this thread's share of the entry has landed
+    // hierarchical z, tile-wide: is some pixel deeper than the cluster's
+    // zmin? The barrier also publishes the staged planes and ends every
+    // warp's use of the other buffer.
+    const int deeper = __syncthreads_or(!(zc >= my_max));
+    bool go = deeper != 0, waited = true;
+    if (csize > 1) {
+      if (threadIdx.x == 0) sh.deeper[s] = deeper;
+      cluster_arrive();
+      if (!deeper) {  // the other CTAs' votes decide
+        cluster_wait();
+        go = __any_sync(FULL, lane < csize && cluster_load(&sh.deeper[s], lane) != 0);
+      } else {
+        waited = false;  // wait after the entry
+      }
+    }
+    if (!go) break;
+    const int next = b + 1 < cnt ? checked_cluster(list[b + 1], n_clusters) : 0;
+    if (b + 1 < cnt)
+      stage_planes(sh.planes[s ^ 1], rows + (env_rows + (size_t)next * CLUSTER) * N_FIELDS);
+
+    // lane j: can triangle j pass at some pixel of this warp's rectangle?
+    const float(*pl)[CLUSTER] = sh.planes[s];
+    float p[PASS_A_FIELDS];
+#pragma unroll
+    for (int f = 0; f < PASS_A_FIELDS; ++f) p[f] = pl[f][lane];
+    const bool live = !(p[0] == 0.f && p[1] == 0.f && p[2] < 0.f);  // never_covers
+    evaluated += __popc(__ballot_sync(FULL, live));
+    float depth_hi = my_max;  // the warp's largest current depth
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      depth_hi = fmaxf(depth_hi, __shfl_xor_sync(FULL, depth_hi, o));
+    unsigned todo = __ballot_sync(FULL, live && !rect_rejects(p, rect, depth_hi));
+    while (todo) {  // in order: the lowest code wins ties
+      const int j = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const float l0x = pl[0][j] * px, l1x = pl[3][j] * px, zx = pl[6][j] * px;
+      const int code = b * CLUSTER + j;
+#pragma unroll
+      for (int i = 0; i < RECT_H; ++i) {
+        const float py = (float)(y0 + i) + 0.5f;
+        const float l0 = l0x + pl[1][j] * py + pl[2][j];
+        const float l1 = l1x + pl[4][j] * py + pl[5][j];
+        const float z = zx + pl[7][j] * py + pl[8][j];
+        if (l0 >= 0.f && l1 >= 0.f && l0 + l1 <= 1.f && z >= 0.f && z < depth[i]) {
+          depth[i] = z;
+          win[i] = code;
+        }
+      }
+    }
+    if (!waited) cluster_wait();
+    cid = next;
+  }
+  if (csize > 1) cluster_arrive();  // no CTA leaves while another may read its votes
+
+  const size_t plane_px = (size_t)hp * wp;
+#pragma unroll
+  for (int i = 0; i < RECT_H; ++i) {
+    const float py = (float)(y0 + i) + 0.5f;
+    float out[N_ATTR] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (win[i] >= 0) {
+      const int wc = list[win[i] / CLUSTER];
+      resolve(rows + (env_rows + (size_t)wc * CLUSTER + win[i] % CLUSTER) * N_FIELDS, px, py,
+              out);
+    }
+    const size_t at = (size_t)(y0 + i) * wp + x0 + lane;
+    depth_out[(size_t)env * plane_px + at] = depth[i];
+#pragma unroll
+    for (int a = 0; a < N_ATTR; ++a)
+      attr_out[((size_t)env * N_ATTR + a) * plane_px + at] = out[a];
+  }
+  if (work != nullptr && rank == 0 && threadIdx.x == 0) work[g] = evaluated;
+  if (csize > 1) cluster_wait();
+}
+
+__global__ void __launch_bounds__(MAX_THREADS)
+cluster_raster_kernel(const float* __restrict__ rows, const int* __restrict__ ids,
+                      const int* __restrict__ counts, const float* __restrict__ zmin,
+                      float* __restrict__ depth_out, float* __restrict__ attr_out,
+                      int* __restrict__ work, int n_clusters, int n_tiles, int ntx, int th,
+                      int tw, int hp, int wp, int kmax, int quant_z, int csize) {
+  __shared__ ClusterShared sh;
+  cluster_tile(sh, blockIdx.x / csize, blockIdx.x % csize, csize, rows, ids, counts, zmin,
+               depth_out, attr_out, work, n_clusters, n_tiles, ntx, th, tw, hp, wp, kmax,
+               quant_z);
+}
+
+// Threads per CTA of the cluster kernel, or 0 where the tile does not split
+// into 8x32 warp rectangles dealt evenly to `csize` CTAs of at most
+// MAX_THREADS threads.
+int cluster_threads(int th, int tw, int csize) {
+  if (th <= 0 || tw <= 0 || th % RECT_H || tw % 32 || csize < 1 || csize > MAX_CTAS_PER_TILE)
+    return 0;
+  const int warps = th / RECT_H * (tw / 32);
+  if (warps % csize || warps / csize * 32 > MAX_THREADS) return 0;
+  return warps / csize * 32;
+}
+
 }  // namespace
 
 // ---- host entry points (plain C interface, loaded with ctypes) ------------
 // Everything above this line is also built with g++ for a CPU run of the
 // kernels (tests/test_torch_raster_emulated.py): keep it free of CUDA
-// intrinsics that the test's shim does not define.
+// intrinsics that the test's shim does not define. It stands in for the
+// PTX primitives at the top (cp.async, the cluster barrier, distributed
+// shared memory).
 
 extern "C" {
 
 int scx_raster_clusters(const void* setup, const void* ids, const void* counts,
                         const void* zmin, void* depth, void* attrs, void* work, int n_envs,
                         int n_clusters, int ntx, int nty, int th, int tw, int kc, int quant_z,
-                        void* stream) {
-  const int nthr = threads_for(th, tw);
-  if (th <= 0 || tw <= 0 || nthr > MAX_THREADS || kc <= 0 || ntx <= 0 || nty <= 0 ||
-      n_envs <= 0 || (long long)n_envs * ntx * nty > 0x7FFFFFFFLL)
+                        int ctas_per_tile, void* stream) {
+  const int nthr = cluster_threads(th, tw, ctas_per_tile);
+  if (nthr == 0 || kc <= 0 || ntx <= 0 || nty <= 0 || n_envs <= 0 ||
+      (long long)n_envs * ntx * nty * ctas_per_tile > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
-  raster_kernel<true><<<n_envs * ntx * nty, nthr, 0, (cudaStream_t)stream>>>(
-      (const float*)setup, (const int*)ids, (const int*)counts, (const float*)zmin,
-      (float*)depth, (float*)attrs, (int*)work, n_clusters, ntx * nty, ntx, th, tw, nty * th,
-      ntx * tw, kc, quant_z);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_envs * ntx * nty * ctas_per_tile);
+  cfg.blockDim = dim3(nthr);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas_per_tile;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = ctas_per_tile > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, cluster_raster_kernel, (const float*)setup, (const int*)ids, (const int*)counts,
+      (const float*)zmin, (float*)depth, (float*)attrs, (int*)work, n_clusters, ntx * nty, ntx,
+      th, tw, nty * th, ntx * tw, kc, quant_z, ctas_per_tile);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 int scx_raster_tiles(const void* binned, const void* counts, void* depth, void* attrs,
@@ -232,9 +433,9 @@ int scx_raster_tiles(const void* binned, const void* counts, void* depth, void* 
   if (th <= 0 || tw <= 0 || nthr > MAX_THREADS || k <= 0 || ntx <= 0 || nty <= 0 ||
       n_envs <= 0 || (long long)n_envs * ntx * nty > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
-  raster_kernel<false><<<n_envs * ntx * nty, nthr, 0, (cudaStream_t)stream>>>(
-      (const float*)binned, nullptr, (const int*)counts, nullptr, (float*)depth,
-      (float*)attrs, (int*)work, 0, ntx * nty, ntx, th, tw, nty * th, ntx * tw, k, 0);
+  tile_raster_kernel<<<n_envs * ntx * nty, nthr, 0, (cudaStream_t)stream>>>(
+      (const float*)binned, (const int*)counts, (float*)depth, (float*)attrs, (int*)work,
+      ntx * nty, ntx, th, tw, nty * th, ntx * tw, k);
   return (int)cudaGetLastError();
 }
 

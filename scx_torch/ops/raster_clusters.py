@@ -11,9 +11,10 @@ tile's cluster list in slot order and keeps, per pixel, the nearest
 covering triangle (strict `<`: the lowest code wins ties), stopping at the
 first cluster whose min depth is >= the tile's max depth (exact, as the
 list is near-to-far); pass B evaluates the winners' attributes. On a CUDA
-tensor it launches the hand-written kernel of csrc/raster.cu (one CTA per
-tile); on a CPU tensor it takes `rasterize_clusters_reference`, the same
-rules in plain PyTorch vectorised over tiles.
+tensor it launches the hand-written kernel of csrc/raster.cu (a tile is a
+thread-block cluster of `ctas_per_tile` CTAs, each warp owning an 8 x 32
+pixel rectangle); on a CPU tensor it takes `rasterize_clusters_reference`,
+the same rules in plain PyTorch vectorised over tiles.
 
 `rasterize_clusters_batched` replaces the env-batched TPU kernel
 rasterize_clusters_batched (body `_kernel_batched`, the RL fleet's
@@ -45,6 +46,11 @@ CLUSTER = 32  # triangles per cluster
 RASTER_CLUSTERS_LAUNCHES = 0  # launches of the CUDA cluster kernel, never reset here
 RASTER_CLUSTERS_BATCHED_LAUNCHES = 0  # the same over a fleet (rasterize_clusters_batched)
 _ZQ = 32767.0  # 15-bit zmin quantization of the batched TPU kernel
+# the CUDA kernel's layout (csrc/raster.cu): a warp owns _RECT_H x _RECT_W
+# pixels; a tile's CTAs form one thread-block cluster of at most _MAX_CTAS
+# CTAs (the portable size) of at most _MAX_THREADS threads
+_RECT_H, _RECT_W, _MAX_CTAS, _MAX_THREADS = 8, 32, 8, 512
+_CTAS_PER_SM = 8  # spread tiles over CTAs until the grid holds this many per SM
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -138,15 +144,17 @@ def quantize_zmin(cl_zmin):
 
 def rasterize_clusters_batched_reference(setup, cl_ids, cl_counts, params,
                                          max_clusters_per_tile: int, cl_zmin=None,
-                                         work=None, quantize: bool = True) -> dict:
+                                         work=None, quantize: bool = True,
+                                         walked=None) -> dict:
     """Plain PyTorch version of the cluster kernel over a fleet (see the
     module doc): setup [E, T, N_FIELDS], cl_ids [E, n_tiles, KC] (cluster
     ids of each env), cl_counts [E, n_tiles], cl_zmin [E, C] -> G-buffer
     dict with a leading env axis. The hierarchical-z exit reads the
     15-bit quantized zmin (`quantize_zmin`) unless quantize is False (the
     single-scene kernel's exact test). `work` [E, n_tiles] i32, if given,
-    receives the triangles pass A evaluated per tile. The env axis folds
-    into the tile and cluster axes."""
+    receives the triangles pass A evaluated per tile, and `walked` [E,
+    n_tiles] i32 the list slots it walked (those before the exit). The
+    env axis folds into the tile and cluster axes."""
     e, n_tiles = setup.shape[0], params.n_tiles
     c = params.max_tris // CLUSTER
     dev = setup.device
@@ -164,6 +172,7 @@ def rasterize_clusters_batched_reference(setup, cl_ids, cl_counts, params,
     winner = torch.full(depth.shape, -1, dtype=_I32, device=dev)
     stopped = torch.zeros((e * n_tiles,), dtype=torch.bool, device=dev)
     done = torch.zeros((e * n_tiles,), dtype=_I32, device=dev)
+    slots = torch.zeros((e * n_tiles,), dtype=_I32, device=dev)
     for kc in range(int(counts.max()) if counts.numel() else 0):
         cid = g_ids[:, kc]
         active = (kc < counts) & ~stopped
@@ -173,6 +182,7 @@ def rasterize_clusters_batched_reference(setup, cl_ids, cl_counts, params,
         go = active & ~stop
         depth, winner, w = depth_pass(blocks[cid], px, py, depth, winner, kc * CLUSTER, go)
         done += w
+        slots += go.to(_I32)
     hit = winner >= 0
     w = winner.clamp(min=0).reshape(e * n_tiles, -1)
     cid = torch.gather(g_ids, 1, (w // CLUSTER).long())
@@ -180,28 +190,54 @@ def rasterize_clusters_batched_reference(setup, cl_ids, cl_counts, params,
     attrs = resolve_winners(rows, px, py, hit).permute(0, 3, 1, 2)
     if work is not None:
         work.copy_(done.reshape(e, n_tiles))
+    if walked is not None:
+        walked.copy_(slots.reshape(e, n_tiles))
     return gbuffer_from_planes(untile(depth, params, e), untile(attrs, params, e), params)
 
 
 def rasterize_clusters_reference(setup, cl_ids, cl_counts, params,
                                  max_clusters_per_tile: int, cl_zmin=None,
-                                 work=None) -> dict:
+                                 work=None, walked=None) -> dict:
     """Plain PyTorch version of the single-scene cluster kernel (see the
     module doc); its hierarchical-z exit reads cl_zmin exactly. `work`
     [n_tiles] i32, if given, receives the number of triangles pass A
     evaluated per tile (those of the rasterized clusters that can cover a
-    pixel, see scx_torch.ops.raster.can_cover)."""
+    pixel, see scx_torch.ops.raster.can_cover), and `walked` [n_tiles]
+    i32 the list slots it walked."""
     g = rasterize_clusters_batched_reference(
         setup[None], cl_ids[None], cl_counts[None], params, max_clusters_per_tile,
         None if cl_zmin is None else cl_zmin[None], None if work is None else work[None],
-        quantize=False)
+        quantize=False, walked=None if walked is None else walked[None])
     return {name: v[0] for name, v in g.items()}
+
+
+def ctas_per_tile(n_tiles: int, params, n_sms: int) -> int:
+    """CTAs per tile of the CUDA cluster kernel for a grid of `n_tiles`
+    tiles (over every env) on a card of `n_sms` SMs: the tile's warp
+    rectangles are dealt to its CTAs evenly. Starting from 1, it doubles
+    while a CTA would hold more than 512 threads or the grid fewer than 8
+    CTAs per SM, up to 8 (one portable thread-block cluster): several for
+    a single 720p frame's 120 tiles, 1 for a fleet's thousands. Raises
+    where the tile does not split into 8 x 32 rectangles that fit."""
+    th, tw = params.tile_h, params.tile_w
+    warps = (th // _RECT_H) * (tw // _RECT_W)
+    if th % _RECT_H or tw % _RECT_W:
+        raise ValueError(f"a {th}x{tw} tile does not split into {_RECT_H}x{_RECT_W} warp "
+                         "rectangles")
+    c = 1
+    while (c < _MAX_CTAS and warps % (2 * c) == 0
+           and (warps // c * 32 > _MAX_THREADS or n_tiles * c < _CTAS_PER_SM * n_sms)):
+        c *= 2
+    if warps // c * 32 > _MAX_THREADS:
+        raise ValueError(f"a {th}x{tw} tile does not fit one cluster of {c} CTAs")
+    return c
 
 
 def launch_clusters(name, setup, cl_ids, cl_counts, params, kc, cl_zmin, work, quantize):
     """Checks the operands of the CUDA cluster kernel, launches it on the
-    current stream over E envs and returns the padded (depth [E, Hp, Wp],
-    attrs [E, 6, Hp, Wp]); raises if the launch fails."""
+    current stream over E envs (`ctas_per_tile` CTAs per tile) and returns
+    the padded (depth [E, Hp, Wp], attrs [E, 6, Hp, Wp]); raises if the
+    launch fails."""
     e, n_tiles = setup.shape[0], params.n_tiles
     c = params.max_tris // CLUSTER
     dev = setup.device
@@ -219,6 +255,8 @@ def launch_clusters(name, setup, cl_ids, cl_counts, params, kc, cl_zmin, work, q
         expect.append((work, (e, n_tiles), _I32))
     check_tile(name, params)
     check_operands(name, expect, dev)
+    ctas = ctas_per_tile(e * n_tiles, params,
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
     hp, wp = params.tiles_y * params.tile_h, params.tiles_x * params.tile_w
     lib = _build.load()
     with torch.cuda.device(dev):  # the C side launches on the current device
@@ -228,7 +266,7 @@ def launch_clusters(name, setup, cl_ids, cl_counts, params, kc, cl_zmin, work, q
             setup.data_ptr(), cl_ids.data_ptr(), cl_counts.data_ptr(), cl_zmin.data_ptr(),
             depth.data_ptr(), attrs.data_ptr(), None if work is None else work.data_ptr(),
             e, c, params.tiles_x, params.tiles_y, params.tile_h, params.tile_w, kc,
-            int(quantize), torch.cuda.current_stream(dev).cuda_stream,
+            int(quantize), ctas, torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -265,8 +303,8 @@ def rasterize_clusters_batched(setup, cl_ids, cl_counts, params, max_clusters_pe
     n_tiles] i32, cl_zmin [E, C] f32 -> G-buffer dict with a leading env
     axis; the hierarchical-z exit reads the 15-bit quantized zmin, as the
     TPU kernel does. CPU tensors take rasterize_clusters_batched_reference;
-    CUDA tensors launch the kernel of csrc/raster.cu (one CTA per env and
-    tile) on the current stream, or raise."""
+    CUDA tensors launch the kernel of csrc/raster.cu on the current stream,
+    or raise."""
     global RASTER_CLUSTERS_BATCHED_LAUNCHES
     if setup.device.type == "cpu":
         return rasterize_clusters_batched_reference(setup, cl_ids, cl_counts, params,

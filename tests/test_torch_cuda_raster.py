@@ -6,7 +6,8 @@ Marked `cuda`: these skip where no GPU is present. On a machine with one
 The contract is scx's (tests/test_render_clusters.py): mat and covered
 equal on every pixel, depth within 1e-5, color and uv within 1e-4; the
 kernels are expected to agree bit for bit, and on the count of triangles
-pass A evaluated per tile."""
+pass A evaluated per tile. On these single scenes the cluster kernel
+spreads each tile over several CTAs of a thread-block cluster."""
 
 import pytest
 import torch
@@ -15,7 +16,7 @@ from scx_torch.ops import raster as tr
 from scx_torch.ops import raster_clusters as trc
 from scx_torch.render import pipeline as tp
 
-from torch_render_scenes import city_setup, cluster_lists
+from torch_render_scenes import city_setup, cluster_lists, hard_setup
 
 pytestmark = pytest.mark.cuda
 
@@ -25,6 +26,11 @@ def gpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the raster kernels have no CPU mode)")
     return torch.device("cuda", 0)
+
+
+def _ctas(params, tiles, dev):
+    return trc.ctas_per_tile(tiles, params, torch.cuda.get_device_properties(dev)
+                             .multi_processor_count)
 
 
 def _assert_contract(got, ref):
@@ -44,6 +50,7 @@ def test_cluster_kernel_matches_plain(gpu, size):
                                             max_tris=8192, kc=64, device=gpu)
     kc = params.max_clusters_per_tile
     ids, counts, cl_zmin = cluster_lists(params, setup, aabb, valid)
+    assert _ctas(params, params.n_tiles, gpu) > 1
     work = torch.zeros(params.n_tiles, dtype=torch.int32, device=gpu)
     ref_work = torch.zeros_like(work)
     before = trc.RASTER_CLUSTERS_LAUNCHES
@@ -53,6 +60,37 @@ def test_cluster_kernel_matches_plain(gpu, size):
     ref = trc.rasterize_clusters_reference(setup, ids, counts, params, kc, cl_zmin, ref_work)
     _assert_contract(got, ref)
     assert torch.equal(work, ref_work)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_cluster_kernel_on_hard_triangles(gpu, batched):
+    """Slivers, near-clipped triangles and coplanar duplicates at 720p
+    (torch_render_scenes.hard_setup), as a single scene (exact exit) and
+    as a fleet of one env (quantized exit)."""
+    params, setup, aabb, valid = hard_setup(1280, 720, 64, 128, n_tris=12000, kc=128,
+                                            device=gpu)
+    kc = params.max_clusters_per_tile
+    ids, counts, cl_zmin = cluster_lists(params, setup, aabb, valid)
+    assert _ctas(params, params.n_tiles, gpu) > 1
+    work = torch.zeros(params.n_tiles, dtype=torch.int32, device=gpu)
+    ref_work = torch.zeros_like(work)
+    if batched:
+        before = trc.RASTER_CLUSTERS_BATCHED_LAUNCHES
+        got = trc.rasterize_clusters_batched(setup[None], ids[None], counts[None], params, kc,
+                                             cl_zmin[None], work[None])
+        torch.cuda.synchronize()
+        assert trc.RASTER_CLUSTERS_BATCHED_LAUNCHES == before + 1
+        ref = trc.rasterize_clusters_batched_reference(setup[None], ids[None], counts[None],
+                                                       params, kc, cl_zmin[None], ref_work[None])
+        got, ref = ({k: v[0] for k, v in g.items()} for g in (got, ref))
+    else:
+        before = trc.RASTER_CLUSTERS_LAUNCHES
+        got = trc.rasterize_clusters(setup, ids, counts, params, kc, cl_zmin, work)
+        torch.cuda.synchronize()
+        assert trc.RASTER_CLUSTERS_LAUNCHES == before + 1
+        ref = trc.rasterize_clusters_reference(setup, ids, counts, params, kc, cl_zmin, ref_work)
+    _assert_contract(got, ref)
+    assert torch.equal(got["depth"], ref["depth"]) and torch.equal(work, ref_work)
 
 
 @pytest.mark.parametrize("size", [(256, 128, 32, 64), (1280, 720, 64, 128)])

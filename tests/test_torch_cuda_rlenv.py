@@ -67,6 +67,28 @@ def test_batched_kernel_matches_plain(gpu, fleet):
     assert torch.equal(work, ref_work)
 
 
+def test_cluster_kernel_one_cta_per_tile_on_a_fleet(gpu):
+    """At 160 envs x 8 tiles the grid fills the card, so the wrapper keeps
+    one CTA per tile (no thread-block cluster)."""
+    envs = 160
+    env = rlenv.make_fleet("glb_clusters", gpu, n_envs=envs)
+    env.step(torch.tensor([ACTION["glb_clusters"]], device=gpu).repeat(envs, 1))
+    setup, aabb, valid, p = env.setup_obs(env.state, env.baked)
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    assert trc.ctas_per_tile(envs * p.n_tiles, p, sms) == 1
+    kc = p.max_clusters_per_tile
+    ids, counts, zmin, _ = trc.frame_cluster_lists(setup, aabb, valid, p)
+    work = torch.zeros((envs, p.n_tiles), dtype=torch.int32, device=gpu)
+    ref_work = torch.zeros_like(work)
+    before = trc.RASTER_CLUSTERS_BATCHED_LAUNCHES
+    got = trc.rasterize_clusters_batched(setup, ids, counts, p, kc, zmin, work)
+    torch.cuda.synchronize()
+    assert trc.RASTER_CLUSTERS_BATCHED_LAUNCHES == before + 1
+    ref = trc.rasterize_clusters_batched_reference(setup, ids, counts, p, kc, zmin, ref_work)
+    _assert_contract(got, ref)
+    assert torch.equal(work, ref_work)
+
+
 def test_env_step_on_the_card(gpu):
     env = rlenv.make_fleet("tiles", gpu, n_envs=ENVS)
     before = (tr.RASTER_TILES_BATCHED_LAUNCHES, pp.MIDDLE_KERNEL_LAUNCHES)

@@ -83,6 +83,64 @@ def city_setup_batched(envs=3, width=256, height=128, tile_h=32, tile_w=128, gri
     return (p, *tp.setup_triangles(draws, fr.pool, vp, p), vp, draws, fr.pool)
 
 
+def hard_setup(width=256, height=128, tile_h=32, tile_w=64, n_tris=600, kc=32, seed=11,
+               device="cpu"):
+    """(params, setup, aabb, valid) of screen-space triangles written as
+    setup writes their planes, chosen to be hard on a rasterizer: slivers
+    (the third vertex nearly on the line of the others: huge planes),
+    near-clipped triangles (vertex depths around 0), coplanar duplicates
+    of earlier triangles later in the list (ties: the lowest code must
+    win), and ordinary ones of every size; colour and material differ per
+    triangle, so a wrong winner shows. Padded with invalid rows to a
+    multiple of 32."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = n_tris
+    kind = rng.choice(4, n, p=[0.4, 0.2, 0.2, 0.2])  # plain, sliver, near-clipped, duplicate
+    c = rng.uniform([0, 0], [width, height], (n, 2))
+    v = c[:, None, :] + rng.normal(0, 1, (n, 3, 2)) * rng.choice([2.0, 10.0, 60.0], n)[:, None,
+                                                                                         None]
+    t = rng.uniform(-0.5, 1.5, n)
+    s = kind == 1
+    v[s, 2] = v[s, 0] + t[s, None] * (v[s, 1] - v[s, 0]) + rng.choice([1e-3, -1e-3, 1e-2],
+                                                                      (s.sum(), 1))
+    z = rng.uniform(0.05, 0.95, (n, 3))
+    s = kind == 2
+    z[s, :2] = rng.uniform(-0.03, 0.03, (s.sum(), 2))
+    for i in np.flatnonzero(kind == 3):  # a copy of an earlier triangle
+        j = rng.integers(0, max(i, 1))
+        v[i], z[i] = v[j], z[j]
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    (x0, y0), (x1, y1), (x2, y2) = ((f32(v[:, k, 0]), f32(v[:, k, 1])) for k in range(3))
+    area2 = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    inv = torch.where(torch.abs(area2) < 1e-12, 0.0, 1.0 / area2)
+    l0 = [-(y2 - y1) * inv, (x2 - x1) * inv, ((y2 - y1) * x1 - (x2 - x1) * y1) * inv]
+    l1 = [-(y0 - y2) * inv, (x0 - x2) * inv, ((y0 - y2) * x2 - (x0 - x2) * y2) * inv]
+    zv = f32(z)
+    d0, d1 = zv[:, 0] - zv[:, 2], zv[:, 1] - zv[:, 2]
+    zp = [l0[k] * d0 + l1[k] * d1 for k in range(3)]
+    zp[2] = zp[2] + zv[:, 2]
+    one, zero = torch.ones_like(x0), torch.zeros_like(x0)
+    col = f32(rng.uniform(0, 1, (n, 5)))
+    rows = l0 + l1 + zp + [zero, zero, one]  # 1/w = 1
+    for k in range(5):  # rgb, uv: constant per triangle
+        rows += [zero, zero, col[:, k]]
+    rows += [f32(np.arange(n) % 7), one, zv.amin(1), zero, zero]
+    setup = torch.stack(rows, -1)
+    t_pad = -(-n // 32) * 32
+    pad = torch.zeros((t_pad - n, tp.N_FIELDS), device=device)
+    pad[:, tp.F_L0 + 2] = -1.0
+    setup = torch.cat([setup, pad])
+    xs, ys = torch.stack([x0, x1, x2], 1), torch.stack([y0, y1, y2], 1)
+    aabb = torch.stack([xs.amin(1), ys.amin(1), xs.amax(1), ys.amax(1)], -1)
+    aabb = torch.cat([aabb, torch.zeros((t_pad - n, 4), device=device)])
+    valid = torch.arange(t_pad, device=device) < n
+    p = tp.RasterParams(width=width, height=height, tile_h=tile_h, tile_w=tile_w,
+                        max_tris=t_pad, max_clusters_per_tile=kc)
+    return p, setup, aabb, valid
+
+
 def cluster_lists(params, setup, aabb, valid, zsort=True):
     """(ids, counts, cl_zmin) as a frame builds them (zsort: near-to-far)."""
     ids, counts, cl_zmin, _ = trc.frame_cluster_lists(setup, aabb, valid,
