@@ -39,10 +39,10 @@ fleet -- in phases and exits non-zero at the first failure:
      own setup and cluster lists, (b) rasterize_tiles at 1280x720 on three
      cubes and a ground slab (no tile list overflows), each held to scx's
      contract (tests/test_render_clusters.py): mat and covered equal on
-     every pixel, depth within 1e-5, color and uv within 1e-4; and the
-     triangles pass A evaluated per tile must agree; prints the cluster
-     kernel's CTAs per tile, and each kernel's bound beside the one
-     earlier versions printed (see raster_bound);
+     every pixel, depth within 1e-5, color and uv within 1e-4 (the tile
+     kernel bit for bit); and the triangles pass A evaluated per tile must
+     agree; prints the CTAs per tile of each kernel's launch, and its
+     bound beside the one earlier versions printed (see raster_bound);
   6. render path: render_frame_baked, then render_frame, on the city
      frame: 30 timed frames each after warm-up, exactly one cluster-kernel
      launch per frame, no dropped cluster, finite rgb, some pixel
@@ -54,7 +54,8 @@ fleet -- in phases and exits non-zero at the first failure:
      printed) and step once; that step's observation setup goes through
      its binning, then rasterize_tiles_batched / rasterize_clusters_batched
      and their plain versions, over every env, held to the contract of
-     phase 5, with equal work per tile, printed as phase 5 prints;
+     phase 5 (the tile kernel bit for bit, overflowing lists included),
+     with equal work per tile, printed as phase 5 prints;
   8. RL path: per fleet, 2 warm steps, rollout(actions, 10) twice (the
      faster counts) and 10 step() calls, printing rl_env_steps_per_sec for
      both; it fails unless each step launched one batched raster kernel
@@ -71,10 +72,18 @@ fleet -- in phases and exits non-zero at the first failure:
      same with obs_mode="state", n_agents=4 and the state MLP: no raster
      launch, reward [E, 4]; then one rgbd n_agents=2 step of a 512-env tile
      fleet, whose observation through the kernel meets phase 5's contract
-     against the plain rasterizer.
+     against the plain rasterizer;
+ 10. each raster kernel alone on phases 5 and 7's inputs: `kernel_ms`, the
+     device time of the CUDA kernel (scx_torch.profile_raster.kernel_ms:
+     torch.profiler), which the small cube frame's entry point hides
+     behind host dispatch. It runs after every rate, as the profiler may
+     leave a cost per launch behind it.
 
 The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Nothing of JAX is imported.
+{"ok": true, "device": {...}}. A kernel's `ms` is its entry point's
+time with CUDA events around 20 calls; the raster kernels add phase
+10's `kernel_ms`.
+Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -104,6 +113,10 @@ HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
 # mul + 2 add, l0 + l1, five compares; per pixel in pass B: six planes,
 # max, divide, five multiplies
 PASS_A_OPS, PASS_B_OPS = 18, 31
+# setup fields each pass must read of a row: pass A the l0, l1 and z planes
+# of every evaluated triangle, pass B the 1/w, rgb and uv planes and the
+# material of every row that wins a pixel
+PASS_A_FIELDS, PASS_B_FIELDS = 9, 19
 
 
 def fail(msg: str):
@@ -281,19 +294,26 @@ def bound(bytes_moved: float, ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def raster_bound(work, pass_a_pixels, params, list_bytes: int, envs: int = 1):
-    """Bound of a raster kernel from the triangles its pass A evaluated per
-    tile (`work`, over every env's tiles) and the pixels of their tiles
-    inside their screen boxes (`pass_a_pixels`, see `box_pixels`): their
-    setup rows and the lists read once, the G-buffer written once;
-    PASS_A_OPS per (triangle, pixel of its tile inside its box) and
-    PASS_B_OPS per pixel. Returns (ms, by, the earlier ms): the earlier
-    bound counted every pixel of the tile for each evaluated triangle."""
+def raster_bound(work, pass_a_rows: int, won_rows: int, pass_a_pixels, params,
+                 list_bytes: int, envs: int = 1):
+    """Bound of a raster kernel from the input rows its pass A must read
+    (`pass_a_rows`: the triangles it evaluates, each distinct row of its
+    input once), the rows that win a pixel (`won_rows`, as the plain
+    version reports them) and the pixels of each evaluated triangle's tile
+    inside its screen box (`pass_a_pixels`, see `box_pixels`): the
+    PASS_A_FIELDS of each evaluated row, the PASS_B_FIELDS of each winning
+    row and the lists read once, the G-buffer written once; PASS_A_OPS per
+    (triangle, pixel of its tile inside its box) and PASS_B_OPS per pixel.
+    Returns (ms, by, the earlier ms): the earlier bound read all 32 fields
+    of every triangle evaluated per tile (`work`) and counted every pixel
+    of the tile for it."""
     evaluated = int(work.sum())
     pixels = envs * params.tiles_y * params.tile_h * params.tiles_x * params.tile_w
-    moved = evaluated * 32 * 4 + list_bytes + pixels * 7 * 4
+    out_bytes = list_bytes + pixels * 7 * 4
+    moved = (pass_a_rows * PASS_A_FIELDS + won_rows * PASS_B_FIELDS) * 4 + out_bytes
     ms, by = bound(moved, pass_a_pixels * PASS_A_OPS + pixels * PASS_B_OPS)
-    old = bound(moved, evaluated * params.tile_h * params.tile_w * PASS_A_OPS
+    old = bound(evaluated * 32 * 4 + out_bytes,
+                evaluated * params.tile_h * params.tile_w * PASS_A_OPS
                 + pixels * PASS_B_OPS)[0]
     return ms, by, old
 
@@ -317,11 +337,13 @@ def box_pixels(aabb, tiles, params):
             * span(box[..., 1], box[..., 3], ty, params.tile_h))
 
 
-def cluster_pass_a_pixels(setup, aabb, ids, walked, params) -> int:
-    """Sum over tiles of the pixels inside the boxes of the triangles pass A
-    evaluates (those that can cover, of the clusters in the `walked` first
-    slots of each list, as the plain version reports them). setup [E, T,
-    F], aabb [E, T, 4], ids [E, tiles, KC], walked [E, tiles]."""
+def cluster_pass_a_pixels(setup, aabb, ids, walked, params):
+    """(pixels, rows): the sum over tiles of the pixels inside the boxes of
+    the triangles pass A evaluates (those that can cover, of the clusters
+    in the `walked` first slots of each list, as the plain version reports
+    them), and the distinct setup rows among those triangles (a row that
+    several tiles evaluate is read from memory once). setup [E, T, F],
+    aabb [E, T, 4], ids [E, tiles, KC], walked [E, tiles]."""
     import torch
 
     from scx_torch.ops import raster as tr
@@ -331,12 +353,14 @@ def cluster_pass_a_pixels(setup, aabb, ids, walked, params) -> int:
     tiles = torch.arange(n_tiles, device=dev)[None, :, None]
     lane = torch.arange(32, device=dev)
     env = torch.arange(e, device=dev)[:, None, None]
+    read = torch.zeros(setup.shape[:2], dtype=torch.bool, device=dev)
     total = 0.0
     for k in range(int(walked.max()) if walked.numel() else 0):
         tri = ids[..., k].long()[..., None] * 32 + lane  # [E, tiles, 32]
         live = tr.can_cover(setup[env, tri]) & (k < walked)[..., None]
         total += float((box_pixels(aabb[env, tri], tiles, params) * live).sum())
-    return int(total)
+        read[env.expand_as(tri)[live], tri[live]] = True
+    return int(total), int(read.sum())
 
 
 def tile_pass_a_pixels(setup, aabb, valid, params) -> int:
@@ -376,33 +400,6 @@ def check_gbuffer(tag, got, ref):
     return max(errs.values()), int(differ.sum())
 
 
-def cube_frame(device):
-    """Three cubes on a ground slab that runs behind the camera, at
-    1280x720 through the tile path: (draws, pool, view_proj, params)."""
-    import torch
-
-    from scx_torch.core import math3d as m3
-    from scx_torch.render import pipeline as rp
-    from scx_torch.render.camera import camera_view_proj
-    from scx_torch.render.mesh import MESH_CUBE, build_mesh_pool
-
-    t = lambda *v: torch.tensor(v, dtype=torch.float32, device=device)
-    models = [m3.mat4_trs(t(0.0, -0.55, -10.0), t(0.0, 0.0, 0.0), t(40.0, 0.1, 40.0))]
-    models += [m3.mat4_trs(t(dx, 0.0, dz), t(0.0, a, 0.0), t(1.0, 1.0, 1.0))
-               for dx, dz, a in [(0.0, 0.0, 0.3), (1.2, -0.5, 0.9), (-1.0, 0.4, 0.0)]]
-    draws = rp.DrawList(
-        mesh_id=torch.full((4,), MESH_CUBE, dtype=torch.int32, device=device),
-        material_id=torch.arange(4, dtype=torch.int32, device=device),
-        model=torch.stack(models),
-        valid=torch.ones((4,), dtype=torch.bool, device=device),
-    )
-    vp = camera_view_proj(t(1.5, 1.2, 2.5), t(0.0, 0.0, 0.0), t(0.0, 1.0, 0.0),
-                          aspect=1280 / 720)
-    params = rp.RasterParams(width=1280, height=720, max_tris=512, max_tris_per_tile=256,
-                             use_clusters=False, clip_extra=128)
-    return draws, build_mesh_pool(device=device), vp, params
-
-
 def run_frames(render, n):
     """n frames on the host clock between synchronizes, ending in a host
     read; returns (seconds per frame, the last frame)."""
@@ -423,7 +420,7 @@ def main():
     # ---- 1. device ----------------------------------------------------
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
-    from scx_torch import _build
+    from scx_torch import _build, profile_raster
     from scx_torch.app import rlenv
     from scx_torch.ops import raster as tr
     from scx_torch.ops import raster_clusters as trc
@@ -432,10 +429,10 @@ def main():
     from scx_torch.physics.solver import SolverParams
     from scx_torch.render import city
     from scx_torch.render import pipeline as rp
+    from scx_torch.render.cubes import cube_frame
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     card = card_line()
     print(card, flush=True)
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
@@ -588,24 +585,33 @@ def main():
     kc = fparams.max_clusters_per_tile
     work_k = torch.zeros(fparams.n_tiles, dtype=torch.int32, device=dev)
     work_p, walked = torch.zeros_like(work_k), torch.zeros_like(work_k)
+    won = torch.zeros(fparams.max_tris, dtype=torch.bool, device=dev)
     got = trc.rasterize_clusters(setup, ids, counts, fparams, kc, zmin, work_k)
+    cl_ctas = trc.RASTER_CLUSTERS_CTAS
     ref = trc.rasterize_clusters_reference(setup, ids, counts, fparams, kc, zmin, work_p,
-                                           walked)
+                                           walked, won)
     err_cl, differ = check_gbuffer("rasterize_clusters", got, ref)
     if not torch.equal(work_k, work_p):
         fail("rasterize_clusters: pass A's work per tile differs from the plain version's")
     cl_ms = cuda_ms(lambda: trc.rasterize_clusters(setup, ids, counts, fparams, kc, zmin), 20)
+    # the kernel alone is timed after the rate phases (phase 10): the profiler
+    # may leave a cost per launch behind it
+    alone = [("rasterize_clusters", "cluster_raster_kernel",
+              functools.partial(trc.rasterize_clusters, setup, ids, counts, fparams, kc, zmin))]
     cl_plain_ms = cuda_ms(
         lambda: trc.rasterize_clusters_reference(setup, ids, counts, fparams, kc, zmin), 2)
+    cl_pixels, cl_rows = cluster_pass_a_pixels(setup[None], aabb[None], ids[None],
+                                               walked[None], fparams)
     cl_bound, cl_by, cl_old = raster_bound(
-        work_k, cluster_pass_a_pixels(setup[None], aabb[None], ids[None], walked[None], fparams),
-        fparams, 4 * (ids.numel() + counts.numel() + zmin.numel()))
+        work_k, cl_rows, int(won.sum()), cl_pixels, fparams,
+        4 * (ids.numel() + counts.numel() + zmin.numel()))
     print(json.dumps({
         "check": "rasterize_clusters", "width": fparams.width, "height": fparams.height,
         "tiles": fparams.n_tiles, "max_tris": fparams.max_tris, "kc": kc,
-        "ctas_per_tile": trc.ctas_per_tile(fparams.n_tiles, fparams, sms),
+        "ctas_per_tile": cl_ctas,
         "listed_clusters": int(counts.sum()), "walked_slots": int(walked.sum()),
         "evaluated_tris": int(work_k.sum()), "max_tile_evaluated_tris": int(work_k.max()),
+        "evaluated_rows": cl_rows, "won_rows": int(won.sum()),
         "max_abs_err": err_cl, "pixels_differing": differ, "ms": cl_ms,
         "plain_ms": cl_plain_ms, "bound_ms": cl_bound, "bound_by": cl_by,
         "bound_ms_whole_tile": cl_old, "card": card,
@@ -618,21 +624,28 @@ def main():
         fail("the cube scene overflows a tile's triangle list")
     twork_k = torch.zeros(cparams.n_tiles, dtype=torch.int32, device=dev)
     twork_p = torch.zeros_like(twork_k)
+    twon = torch.zeros(binned.shape[:2], dtype=torch.bool, device=dev)
     got = tr.rasterize_tiles(binned, cparams, tcounts, twork_k)
-    ref = tr.rasterize_tiles_reference(binned, cparams, tcounts, twork_p)
+    t_ctas = tr.RASTER_TILES_CTAS
+    ref = tr.rasterize_tiles_reference(binned, cparams, tcounts, twork_p, twon)
     err_t, differ = check_gbuffer("rasterize_tiles", got, ref)
-    if not torch.equal(twork_k, twork_p) or not ref["covered"].any():
-        fail("rasterize_tiles: work differs from the plain version's, or nothing covered")
+    if differ or not torch.equal(twork_k, twork_p) or not ref["covered"].any():
+        fail(f"rasterize_tiles: {differ} pixels or the work differ from the plain version's, "
+             "or nothing covered")
     t_ms = cuda_ms(lambda: tr.rasterize_tiles(binned, cparams, tcounts), 20)
+    alone.append(("rasterize_tiles", "tile_raster_kernel",
+                  functools.partial(tr.rasterize_tiles, binned, cparams, tcounts)))
     t_plain_ms = cuda_ms(lambda: tr.rasterize_tiles_reference(binned, cparams, tcounts), 3)
     t_bound, t_by, t_old = raster_bound(
-        twork_k, tile_pass_a_pixels(csetup[None], caabb[None], cvalid[None], cparams), cparams,
+        twork_k, int(twork_k.sum()), int(twon.sum()),
+        tile_pass_a_pixels(csetup[None], caabb[None], cvalid[None], cparams), cparams,
         4 * tcounts.numel())
     print(json.dumps({
         "check": "rasterize_tiles", "width": cparams.width, "height": cparams.height,
         "tiles": cparams.n_tiles, "tris_in": int(cvalid.sum()),
         "max_tile_occupancy": int(tcounts.max()), "evaluated_tris": int(twork_k.sum()),
-        "max_abs_err": err_t, "pixels_differing": differ, "ms": t_ms,
+        "won_rows": int(twon.sum()),
+        "ctas_per_tile": t_ctas, "max_abs_err": err_t, "pixels_differing": differ, "ms": t_ms,
         "plain_ms": t_plain_ms, "bound_ms": t_bound, "bound_by": t_by,
         "bound_ms_whole_tile": t_old, "card": card,
     }), flush=True)
@@ -705,38 +718,54 @@ def main():
         if p.use_clusters:
             kname, kc = "rasterize_clusters_batched", p.max_clusters_per_tile
             ids, counts, zmin, dropped = trc.frame_cluster_lists(setup, aabb, valid, p)
-            kernel = lambda w=None: trc.rasterize_clusters_batched(setup, ids, counts, p, kc,
-                                                                   zmin, w)
+            kernel = functools.partial(trc.rasterize_clusters_batched, setup, ids, counts, p,
+                                       kc, zmin)
+            won = torch.zeros(setup.shape[:2], dtype=torch.bool, device=dev)
             plain = lambda w=None: trc.rasterize_clusters_batched_reference(
-                setup, ids, counts, p, kc, zmin, w, walked=None if w is None else walked)
+                setup, ids, counts, p, kc, zmin, w, walked=None if w is None else walked,
+                won=None if w is None else won)
             list_bytes = 4 * (ids.numel() + counts.numel() + zmin.numel())
-            extra = {"listed_clusters": int(counts.sum()), "cluster_drop": int(dropped.sum()),
-                     "ctas_per_tile": trc.ctas_per_tile(e * p.n_tiles, p, sms)}
+            extra = {"listed_clusters": int(counts.sum()), "cluster_drop": int(dropped.sum())}
             pass_a = lambda: cluster_pass_a_pixels(setup, aabb, ids, walked, p)
         else:
             kname = "rasterize_tiles_batched"
             binned, counts = rp.bin_triangles_batched(setup, aabb, valid, p)
-            kernel = lambda w=None: tr.rasterize_tiles_batched(binned, counts, p, w)
-            plain = lambda w=None: tr.rasterize_tiles_batched_reference(binned, counts, p, w)
+            kernel = functools.partial(tr.rasterize_tiles_batched, binned, counts, p)
+            won = torch.zeros(binned.shape[:3], dtype=torch.bool, device=dev)
+            plain = lambda w=None: tr.rasterize_tiles_batched_reference(
+                binned, counts, p, w, None if w is None else won)
             list_bytes = 4 * counts.numel()
             extra = {"max_tile_occupancy": int(counts.max()),
                      "tile_overflow": int((counts >= p.max_tris_per_tile).sum())}
-            pass_a = lambda: tile_pass_a_pixels(setup, aabb, valid, p)
-        got, ref = kernel(work_k), plain(work_p)
+            pass_a = lambda: (tile_pass_a_pixels(setup, aabb, valid, p), int(work_k.sum()))
+        got = kernel(work_k)
+        extra["ctas_per_tile"] = (trc.RASTER_CLUSTERS_CTAS if p.use_clusters
+                                  else tr.RASTER_TILES_CTAS)
+        ref = plain(work_p)
         err, differ = check_gbuffer(kname, got, ref)
         if not torch.equal(work_k, work_p) or not ref["covered"].any():
             fail(f"{kname}: pass A's work per tile differs from the plain version's, "
                  "or nothing covered")
+        if differ and not p.use_clusters:
+            fail(f"{kname}: {differ} pixels differ from the plain version's")
         k_ms, p_ms = cuda_ms(kernel, 20), cuda_ms(plain, 2)
-        b_ms, b_by, b_old = raster_bound(work_k, pass_a(), p, list_bytes, envs=e)
-        batched[kname] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                          "bound_by": b_by}
+        alone.append((kname, "cluster_raster_kernel" if p.use_clusters
+                      else "tile_raster_kernel", kernel))
+        pixels_a, rows_a = pass_a()
+        b_ms, b_by, b_old = raster_bound(work_k, rows_a, int(won.sum()), pixels_a, p,
+                                         list_bytes, envs=e)
+        batched[kname] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                          "bound_ms": b_ms, "bound_by": b_by}
+        if not p.use_clusters:
+            batched[kname]["ctas_per_tile"] = extra["ctas_per_tile"]
         print(json.dumps({
             "check": kname, "fleet": name, "envs": e, "compared_envs": e, "tiles": p.n_tiles,
             "tile": [p.tile_h, p.tile_w], "max_tris": p.max_tris,
             "evaluated_tris": int(work_k.sum()), "max_tile_evaluated_tris": int(work_k.max()),
+            "evaluated_rows": rows_a, "won_rows": int(won.sum()),
             **extra, "max_abs_err": err, "pixels_differing": differ, "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "bound_ms_whole_tile": b_old,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_whole_tile": b_old,
             "card": card,
         }), flush=True)
 
@@ -887,7 +916,17 @@ def main():
         fail("two-agent tile fleet: wrong shapes, nothing covered, or a faulty step")
     del env
 
-    # ---- 10. records -----------------------------------------------------
+    # ---- 10. each raster kernel alone, on phases 5 and 7's inputs ----------
+    kernel_alone = {}
+    for kname, cuda_name, kernel in alone:
+        kernel_alone[kname] = profile_raster.kernel_ms(kernel, 20, cuda_name)
+        print(json.dumps({"check": f"{kname} alone", "kernel_ms": kernel_alone[kname],
+                          "card": card}), flush=True)
+    del alone
+    for kname in ("rasterize_clusters_batched", "rasterize_tiles_batched"):
+        batched[kname]["kernel_ms"] = kernel_alone[kname]
+
+    # ---- 11. records -----------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": "planar_middle", "route": "cuda",
          "source": "scx_torch/physics/csrc/planar_middle.cu",
@@ -908,12 +947,13 @@ def main():
          "source": "scx_torch/ops/csrc/raster.cu",
          "replaces": "scx/ops/raster_clusters.py:404",
          "launches": frame_launches["render_frame_baked"], "max_abs_err": err_cl,
-         "ms": cl_ms, "plain_ms": cl_plain_ms, "bound_ms": cl_bound, "bound_by": cl_by,
-         "library_ms": None},
+         "ms": cl_ms, "kernel_ms": kernel_alone["rasterize_clusters"], "plain_ms": cl_plain_ms,
+         "bound_ms": cl_bound, "bound_by": cl_by, "library_ms": None},
         {"name": "rasterize_tiles", "route": "cuda", "source": "scx_torch/ops/csrc/raster.cu",
          "replaces": "scx/ops/raster.py:155", "launches": tile_launches,
-         "max_abs_err": err_t, "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound,
-         "bound_by": t_by, "library_ms": None},
+         "max_abs_err": err_t, "ms": t_ms, "kernel_ms": kernel_alone["rasterize_tiles"],
+         "plain_ms": t_plain_ms,
+         "bound_ms": t_bound, "bound_by": t_by, "library_ms": None, "ctas_per_tile": t_ctas},
         {"name": "rasterize_clusters_batched", "route": "cuda",
          "source": "scx_torch/ops/csrc/raster.cu",
          "replaces": "scx/ops/raster_clusters.py:478",

@@ -114,6 +114,6 @@ def load() -> ctypes.CDLL:
     lib.scx_planar_solve_prepare.restype = i32
     lib.scx_raster_clusters.argtypes = [vp] * 7 + [i32] * 9 + [vp]
     lib.scx_raster_clusters.restype = i32
-    lib.scx_raster_tiles.argtypes = [vp] * 5 + [i32] * 6 + [vp]
+    lib.scx_raster_tiles.argtypes = [vp] * 5 + [i32] * 7 + [vp]
     lib.scx_raster_tiles.restype = i32
     return lib

@@ -6,8 +6,9 @@ variant (the RL fleet's observations): per screen tile (of each env),
 pass A walks the tile's triangle list in order and keeps, per pixel, the
 nearest covering triangle (strict `<`, so the lowest index wins ties);
 pass B evaluates the winner's perspective-correct attributes. On a CUDA
-tensor each launches the hand-written kernel of csrc/raster.cu (one CTA
-per tile of each env); on a CPU tensor it takes its plain version
+tensor each launches the hand-written kernel of csrc/raster.cu (each warp
+owns an 8 x 32 pixel rectangle of a tile, the tile's rectangles dealt to
+`ctas_per_tile` independent CTAs); on a CPU tensor it takes its plain version
 (`rasterize_tiles_reference`, `rasterize_tiles_batched_reference`), the
 same rules in plain PyTorch vectorised over tiles.
 
@@ -23,11 +24,18 @@ from scx_torch import _build
 from scx_torch.render.pipeline import F_COL, F_IW, F_L0, F_L1, F_MAT, F_UV, F_Z, N_FIELDS
 
 N_ATTR = 6  # r, g, b, u, v, mat
-# one CTA of at most 512 threads x 16 pixels per tile (csrc/raster.cu)
-MAX_TILE_PIXELS = 512 * 16
+# the CUDA kernels' layout (csrc/raster.cu): a warp owns RECT_H x RECT_W
+# pixels of a tile; a tile's rectangles are dealt to at most MAX_CTAS CTAs
+# (the portable thread-block cluster size) of at most MAX_THREADS threads
+RECT_H, RECT_W, MAX_CTAS, MAX_THREADS = 8, 32, 8, 512
+# spread a tile over CTAs until each holds at most TILE_CTA_THREADS threads
+# (the tile kernel: 4 x 256 ran the tile fleet faster than 2 x 512 and 8 x
+# 128 on an H100) or the grid holds CTAS_PER_SM CTAs per SM
+TILE_CTA_THREADS, CTAS_PER_SM = 256, 8
 
 RASTER_TILES_LAUNCHES = 0  # launches of the CUDA tile kernel, never reset here
 RASTER_TILES_BATCHED_LAUNCHES = 0  # the same over a fleet (rasterize_tiles_batched)
+RASTER_TILES_CTAS = 0  # CTAs per tile of the last tile-kernel launch
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -127,12 +135,14 @@ def depth_pass(planes, px, py, depth, winner, code, gate):
     return torch.where(m, best_z, depth), torch.where(m, code + best_j.to(_I32), winner), work
 
 
-def rasterize_tiles_batched_reference(binned, counts, params, work=None) -> dict:
+def rasterize_tiles_batched_reference(binned, counts, params, work=None, won=None) -> dict:
     """Plain PyTorch version of the tile kernel over a fleet: binned [E,
     n_tiles, K, N_FIELDS] + counts [E, n_tiles] -> G-buffer dict with a
     leading env axis. `work` [E, n_tiles] i32, if given, receives the
     number of triangles pass A evaluated per tile (those that can cover a
-    pixel, see `can_cover`). The env axis folds into the tile axis."""
+    pixel, see `can_cover`), and `won` [E, n_tiles, K] bool which list
+    slots win a pixel (the rows pass B must read). The env axis folds into
+    the tile axis."""
     e, n_tiles, k = binned.shape[0], params.n_tiles, params.max_tris_per_tile
     dev = binned.device
     flat = binned.reshape(e * n_tiles, k, N_FIELDS)
@@ -151,10 +161,14 @@ def rasterize_tiles_batched_reference(binned, counts, params, work=None) -> dict
     attrs = resolve_winners(rows, px, py, hit).permute(0, 3, 1, 2)
     if work is not None:
         work.copy_(done.reshape(e, n_tiles))
+    if won is not None:
+        slots = torch.zeros((e * n_tiles, k + 1), dtype=torch.bool, device=dev)
+        slots.scatter_(1, (winner + 1).reshape(e * n_tiles, -1).long(), True)
+        won.copy_(slots[:, 1:].reshape(e, n_tiles, k))
     return gbuffer_from_planes(untile(depth, params, e), untile(attrs, params, e), params)
 
 
-def rasterize_tiles_reference(binned, params, counts=None, work=None) -> dict:
+def rasterize_tiles_reference(binned, params, counts=None, work=None, won=None) -> dict:
     """Plain PyTorch version of the tile kernel on one scene: binned
     [n_tiles, K, N_FIELDS] + counts [n_tiles] -> G-buffer dict (see
     rasterize_tiles_batched_reference)."""
@@ -162,7 +176,8 @@ def rasterize_tiles_reference(binned, params, counts=None, work=None) -> dict:
         counts = torch.full((params.n_tiles,), params.max_tris_per_tile, dtype=_I32,
                             device=binned.device)
     g = rasterize_tiles_batched_reference(binned[None], counts[None], params,
-                                          None if work is None else work[None])
+                                          None if work is None else work[None],
+                                          None if won is None else won[None])
     return {name: v[0] for name, v in g.items()}
 
 
@@ -177,26 +192,54 @@ def check_operands(name, expect, device):
             raise ValueError(f"{name}: operands must be contiguous")
 
 
-def check_tile(name, params):
-    if params.tile_h * params.tile_w > MAX_TILE_PIXELS:
-        raise ValueError(
-            f"{name}: a {params.tile_h}x{params.tile_w} tile does not fit one CTA "
-            f"({MAX_TILE_PIXELS} pixels at most)"
-        )
+def tile_rects(params) -> int:
+    """The 8 x 32 warp rectangles of a tile, the last row and column of
+    them clipped to the tile where it does not split into them."""
+    return -(-params.tile_h // RECT_H) * -(-params.tile_w // RECT_W)
+
+
+def ctas_per_tile(n_tiles: int, params, n_sms: int,
+                  cta_threads: int = TILE_CTA_THREADS) -> int:
+    """CTAs per tile of both CUDA raster kernels for a grid of `n_tiles`
+    tiles (over every env) on a card of `n_sms` SMs: the tile's warp
+    rectangles are dealt to its CTAs in turn. Starting from 1, it doubles
+    while the rectangles still split evenly and a CTA would hold more than
+    `cta_threads` threads or the grid fewer than 8 CTAs per SM, up to 8.
+    The tile kernel caps a CTA at 256 threads: 8 for a single 720p frame's
+    120 tiles of 64x128, 4 for the tile fleet's 8,192 (32 rectangles); its
+    CTA takes rectangles past 16 warps in rounds. The cluster kernel keeps
+    its cap of 512 (scx_torch.ops.raster_clusters.ctas_per_tile): 1 for
+    the GLB fleet's 8,192 tiles of 16x128."""
+    rects = tile_rects(params)
+    c = 1
+    while (c < MAX_CTAS and rects % (2 * c) == 0
+           and (rects // c * 32 > cta_threads or n_tiles * c < CTAS_PER_SM * n_sms)):
+        c *= 2
+    return c
+
+
+def check_rows_aligned(name, rows):
+    """The kernels read a setup row's pass-B fields in 16-byte loads."""
+    if rows.data_ptr() % 16:
+        raise ValueError(f"{name}: the setup rows must start 16-byte aligned")
 
 
 def launch_tiles(name, binned, counts, params, work):
     """Checks the operands of the CUDA tile kernel, launches it on the
     current stream over E envs (binned [E, n_tiles, K, N_FIELDS], counts
-    [E, n_tiles]) and returns the padded (depth [E, Hp, Wp], attrs [E, 6,
-    Hp, Wp]); raises if the launch fails."""
+    [E, n_tiles]; `ctas_per_tile` CTAs per tile) and returns the padded
+    (depth [E, Hp, Wp], attrs [E, 6, Hp, Wp]); raises if the launch
+    fails."""
+    global RASTER_TILES_CTAS
     e, n_tiles, k = binned.shape[0], params.n_tiles, params.max_tris_per_tile
     dev = binned.device
     expect = [(binned, (e, n_tiles, k, N_FIELDS), _F32), (counts, (e, n_tiles), _I32)]
     if work is not None:
         expect.append((work, (e, n_tiles), _I32))
-    check_tile(name, params)
     check_operands(name, expect, dev)
+    check_rows_aligned(name, binned)
+    ctas = ctas_per_tile(e * n_tiles, params,
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
     hp, wp = params.tiles_y * params.tile_h, params.tiles_x * params.tile_w
     lib = _build.load()
     with torch.cuda.device(dev):  # the C side launches on the current device
@@ -205,11 +248,12 @@ def launch_tiles(name, binned, counts, params, work):
         err = lib.scx_raster_tiles(
             binned.data_ptr(), counts.data_ptr(), depth.data_ptr(), attrs.data_ptr(),
             None if work is None else work.data_ptr(),
-            e, params.tiles_x, params.tiles_y, params.tile_h, params.tile_w, k,
+            e, params.tiles_x, params.tiles_y, params.tile_h, params.tile_w, k, ctas,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    RASTER_TILES_CTAS = ctas
     return depth, attrs
 
 
@@ -237,8 +281,8 @@ def rasterize_tiles_batched(binned, counts, params, work=None) -> dict:
     rasterize_tiles_batched): binned [E, n_tiles, K, N_FIELDS] f32 + counts
     [E, n_tiles] i32 -> G-buffer dict with a leading env axis. CPU tensors
     take rasterize_tiles_batched_reference; CUDA tensors launch the kernel
-    of csrc/raster.cu (one CTA per env and tile) on the current stream, or
-    raise."""
+    of csrc/raster.cu (`ctas_per_tile` CTAs per env and tile) on the
+    current stream, or raise."""
     global RASTER_TILES_BATCHED_LAUNCHES
     if binned.device.type == "cpu":
         return rasterize_tiles_batched_reference(binned, counts, params, work)

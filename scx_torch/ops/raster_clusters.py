@@ -30,27 +30,28 @@ import torch
 
 from scx_torch import _build
 from scx_torch.ops.raster import (
+    MAX_THREADS,
     N_ATTR,
+    RECT_H,
+    RECT_W,
     check_operands,
-    check_tile,
+    check_rows_aligned,
     depth_pass,
     gbuffer_from_planes,
     resolve_winners,
     tile_lattice,
+    tile_rects,
     untile,
 )
+from scx_torch.ops.raster import ctas_per_tile as tile_ctas  # the rule both kernels share
 from scx_torch.render.pipeline import F_ZMIN, N_FIELDS, tile_overlap
 
 CLUSTER = 32  # triangles per cluster
 
 RASTER_CLUSTERS_LAUNCHES = 0  # launches of the CUDA cluster kernel, never reset here
 RASTER_CLUSTERS_BATCHED_LAUNCHES = 0  # the same over a fleet (rasterize_clusters_batched)
+RASTER_CLUSTERS_CTAS = 0  # CTAs per tile of the last cluster-kernel launch
 _ZQ = 32767.0  # 15-bit zmin quantization of the batched TPU kernel
-# the CUDA kernel's layout (csrc/raster.cu): a warp owns _RECT_H x _RECT_W
-# pixels; a tile's CTAs form one thread-block cluster of at most _MAX_CTAS
-# CTAs (the portable size) of at most _MAX_THREADS threads
-_RECT_H, _RECT_W, _MAX_CTAS, _MAX_THREADS = 8, 32, 8, 512
-_CTAS_PER_SM = 8  # spread tiles over CTAs until the grid holds this many per SM
 
 _F32, _I32 = torch.float32, torch.int32
 
@@ -145,16 +146,17 @@ def quantize_zmin(cl_zmin):
 def rasterize_clusters_batched_reference(setup, cl_ids, cl_counts, params,
                                          max_clusters_per_tile: int, cl_zmin=None,
                                          work=None, quantize: bool = True,
-                                         walked=None) -> dict:
+                                         walked=None, won=None) -> dict:
     """Plain PyTorch version of the cluster kernel over a fleet (see the
     module doc): setup [E, T, N_FIELDS], cl_ids [E, n_tiles, KC] (cluster
     ids of each env), cl_counts [E, n_tiles], cl_zmin [E, C] -> G-buffer
     dict with a leading env axis. The hierarchical-z exit reads the
     15-bit quantized zmin (`quantize_zmin`) unless quantize is False (the
     single-scene kernel's exact test). `work` [E, n_tiles] i32, if given,
-    receives the triangles pass A evaluated per tile, and `walked` [E,
-    n_tiles] i32 the list slots it walked (those before the exit). The
-    env axis folds into the tile and cluster axes."""
+    receives the triangles pass A evaluated per tile, `walked` [E,
+    n_tiles] i32 the list slots it walked (those before the exit), and
+    `won` [E, T] bool which setup rows win a pixel of some tile. The env
+    axis folds into the tile and cluster axes."""
     e, n_tiles = setup.shape[0], params.n_tiles
     c = params.max_tris // CLUSTER
     dev = setup.device
@@ -186,49 +188,52 @@ def rasterize_clusters_batched_reference(setup, cl_ids, cl_counts, params,
     hit = winner >= 0
     w = winner.clamp(min=0).reshape(e * n_tiles, -1)
     cid = torch.gather(g_ids, 1, (w // CLUSTER).long())
-    rows = rows_all[cid * CLUSTER + (w % CLUSTER)].reshape(*depth.shape, N_FIELDS)
+    row = cid * CLUSTER + (w % CLUSTER)
+    rows = rows_all[row].reshape(*depth.shape, N_FIELDS)
     attrs = resolve_winners(rows, px, py, hit).permute(0, 3, 1, 2)
     if work is not None:
         work.copy_(done.reshape(e, n_tiles))
     if walked is not None:
         walked.copy_(slots.reshape(e, n_tiles))
+    if won is not None:
+        flat = torch.zeros((e * c * CLUSTER,), dtype=torch.bool, device=dev)
+        flat[row[hit.reshape(e * n_tiles, -1)]] = True
+        won.copy_(flat.reshape(e, c * CLUSTER))
     return gbuffer_from_planes(untile(depth, params, e), untile(attrs, params, e), params)
 
 
 def rasterize_clusters_reference(setup, cl_ids, cl_counts, params,
                                  max_clusters_per_tile: int, cl_zmin=None,
-                                 work=None, walked=None) -> dict:
+                                 work=None, walked=None, won=None) -> dict:
     """Plain PyTorch version of the single-scene cluster kernel (see the
     module doc); its hierarchical-z exit reads cl_zmin exactly. `work`
     [n_tiles] i32, if given, receives the number of triangles pass A
     evaluated per tile (those of the rasterized clusters that can cover a
-    pixel, see scx_torch.ops.raster.can_cover), and `walked` [n_tiles]
-    i32 the list slots it walked."""
+    pixel, see scx_torch.ops.raster.can_cover), `walked` [n_tiles] i32
+    the list slots it walked, and `won` [T] bool the rows that win a
+    pixel."""
     g = rasterize_clusters_batched_reference(
         setup[None], cl_ids[None], cl_counts[None], params, max_clusters_per_tile,
         None if cl_zmin is None else cl_zmin[None], None if work is None else work[None],
-        quantize=False, walked=None if walked is None else walked[None])
+        quantize=False, walked=None if walked is None else walked[None],
+        won=None if won is None else won[None])
     return {name: v[0] for name, v in g.items()}
 
 
 def ctas_per_tile(n_tiles: int, params, n_sms: int) -> int:
-    """CTAs per tile of the CUDA cluster kernel for a grid of `n_tiles`
-    tiles (over every env) on a card of `n_sms` SMs: the tile's warp
-    rectangles are dealt to its CTAs evenly. Starting from 1, it doubles
-    while a CTA would hold more than 512 threads or the grid fewer than 8
-    CTAs per SM, up to 8 (one portable thread-block cluster): several for
-    a single 720p frame's 120 tiles, 1 for a fleet's thousands. Raises
-    where the tile does not split into 8 x 32 rectangles that fit."""
+    """CTAs per tile of the CUDA cluster kernel: the rule both raster
+    kernels share (scx_torch.ops.raster.ctas_per_tile) with a CTA of up
+    to 512 threads (the tile kernel's cap of 256 was not timed here), at
+    most 8 (one portable thread-block cluster). Raises where the tile does
+    not split into 8 x 32 rectangles, or they do not fit 8 CTAs of 512
+    threads: its CTAs vote on the hierarchical-z exit over whole
+    rectangles."""
     th, tw = params.tile_h, params.tile_w
-    warps = (th // _RECT_H) * (tw // _RECT_W)
-    if th % _RECT_H or tw % _RECT_W:
-        raise ValueError(f"a {th}x{tw} tile does not split into {_RECT_H}x{_RECT_W} warp "
+    if th % RECT_H or tw % RECT_W:
+        raise ValueError(f"a {th}x{tw} tile does not split into {RECT_H}x{RECT_W} warp "
                          "rectangles")
-    c = 1
-    while (c < _MAX_CTAS and warps % (2 * c) == 0
-           and (warps // c * 32 > _MAX_THREADS or n_tiles * c < _CTAS_PER_SM * n_sms)):
-        c *= 2
-    if warps // c * 32 > _MAX_THREADS:
+    c = tile_ctas(n_tiles, params, n_sms, MAX_THREADS)
+    if tile_rects(params) // c * 32 > MAX_THREADS:
         raise ValueError(f"a {th}x{tw} tile does not fit one cluster of {c} CTAs")
     return c
 
@@ -238,6 +243,7 @@ def launch_clusters(name, setup, cl_ids, cl_counts, params, kc, cl_zmin, work, q
     current stream over E envs (`ctas_per_tile` CTAs per tile) and returns
     the padded (depth [E, Hp, Wp], attrs [E, 6, Hp, Wp]); raises if the
     launch fails."""
+    global RASTER_CLUSTERS_CTAS
     e, n_tiles = setup.shape[0], params.n_tiles
     c = params.max_tris // CLUSTER
     dev = setup.device
@@ -253,8 +259,8 @@ def launch_clusters(name, setup, cl_ids, cl_counts, params, kc, cl_zmin, work, q
     ]
     if work is not None:
         expect.append((work, (e, n_tiles), _I32))
-    check_tile(name, params)
     check_operands(name, expect, dev)
+    check_rows_aligned(name, setup)
     ctas = ctas_per_tile(e * n_tiles, params,
                          torch.cuda.get_device_properties(dev).multi_processor_count)
     hp, wp = params.tiles_y * params.tile_h, params.tiles_x * params.tile_w
@@ -270,6 +276,7 @@ def launch_clusters(name, setup, cl_ids, cl_counts, params, kc, cl_zmin, work, q
         )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    RASTER_CLUSTERS_CTAS = ctas
     return depth, attrs
 
 

@@ -25,7 +25,8 @@ from scx.render import pipeline as jpipe
 from scx_torch.ops import raster as tr
 from scx_torch.ops import raster_clusters as trc
 
-from torch_render_scenes import EYE, TARGET, UP, params, scene_arrays
+from scx_torch.render import pipeline as tp
+from torch_render_scenes import EYE, TARGET, UP, hard_setup, params, scene_arrays
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "benchmarks"))
 from cityscene import build_city_mesh  # noqa: E402
@@ -97,3 +98,53 @@ def test_tile_raster_matches_scx(kind):
     got = tr.rasterize_tiles(_t(binned), p, _t(counts))
     _assert_contract(got, want)
     _assert_contract(got, jr.rasterize_reference(setup, jp))
+
+
+def _tile_sets(mat, covered, p):
+    """[H, W] material ids -> [n_tiles, H*W/n_tiles] per tile, -1 where uncovered."""
+    m = torch.where(covered, mat, -1)
+    return (m.reshape(p.tiles_y, p.tile_h, p.tiles_x, p.tile_w).permute(0, 2, 1, 3)
+            .reshape(p.n_tiles, -1))
+
+
+@pytest.mark.parametrize("kernel", ["tiles", "clusters"])
+def test_won_rows_are_the_rows_pass_b_reads(kernel):
+    """The plain versions' `won` (the rows that win a pixel, which bound the
+    bytes pass B must read) on hard_setup's slivers, near-clipped
+    triangles and coplanar duplicates: with each row's material set to its
+    index, the materials on the G-buffer are exactly the won rows; and
+    garbling every other row's pass-B fields changes nothing."""
+    p, setup, aabb, valid = hard_setup()
+    p = p.replace(max_tris_per_tile=64)
+    passb = slice(tp.F_IW, tp.F_MAT + 1)
+    if kernel == "tiles":
+        binned, counts = tp.bin_triangles(setup, aabb, valid, p)
+        won = torch.zeros(binned.shape[:2], dtype=torch.bool)
+        g = tr.rasterize_tiles_reference(binned, p, counts, won=won)
+        tagged = binned.clone()
+        tagged[..., tp.F_MAT] = torch.arange(p.max_tris_per_tile, dtype=torch.float32)
+        mats = _tile_sets(tr.rasterize_tiles_reference(tagged, p, counts)["mat"],
+                          g["covered"], p)
+        seen = torch.zeros((p.n_tiles, p.max_tris_per_tile + 1), dtype=torch.bool)
+        seen.scatter_(1, (mats + 1).long(), True)
+        garbled = binned.clone()
+        garbled[~won] = garbled[~won].index_fill(-1, torch.arange(passb.start, passb.stop),
+                                                 float("nan"))
+        again = tr.rasterize_tiles_reference(garbled, p, counts)
+    else:
+        ids, counts, zmin, _ = trc.frame_cluster_lists(setup, aabb, valid, p)
+        kc = p.max_clusters_per_tile
+        won = torch.zeros(p.max_tris, dtype=torch.bool)
+        g = trc.rasterize_clusters_reference(setup, ids, counts, p, kc, zmin, won=won)
+        tagged = setup.clone()
+        tagged[:, tp.F_MAT] = torch.arange(p.max_tris, dtype=torch.float32)
+        mats = trc.rasterize_clusters_reference(tagged, ids, counts, p, kc, zmin)["mat"]
+        seen = torch.zeros(p.max_tris + 1, dtype=torch.bool)
+        seen[(torch.where(g["covered"], mats, -1) + 1).long().flatten()] = True
+        garbled = setup.clone()
+        garbled[~won, passb] = float("nan")
+        again = trc.rasterize_clusters_reference(garbled, ids, counts, p, kc, zmin)
+    assert 0 < int(won.sum()) < won.numel()
+    assert torch.equal(seen[..., 1:], won)
+    for k in g:
+        assert torch.equal(again[k], g[k]), k

@@ -9,10 +9,11 @@ cluster running at once with its own shared memory, which the others read
 through the shim's `cluster_load`; cp.async copies held back until the
 thread waits for them), it runs here without a GPU, so the kernels' logic
 is checked on every run; on the card tests/test_torch_cuda_raster.py and
-test_torch_cuda_rlenv.py check the nvcc build. Both kernels, cluster (one
-tile over 1-8 CTAs) and tile, single-scene and env-batched, must give the
+test_torch_cuda_rlenv.py check the nvcc build. Both kernels, cluster and
+tile (one tile over 1-8 CTAs), single-scene and env-batched, must give the
 G-buffer of their plain versions bit for bit, and the same count of
-triangles evaluated per tile (which checks the hierarchical-z exit). The
+triangles evaluated per tile (which checks the hierarchical-z exit and the
+tile kernel's gate on the slots past a list's count). The
 cluster kernel's exact per-warp reject (csrc/raster_reject.cuh) is held
 against the per-pixel test on random and adversarial planes.
 """
@@ -48,6 +49,7 @@ _SHIM = r"""
 #include <utility>
 #include <vector>
 #define SCX_RASTER_SHIM
+struct alignas(16) float4 { float x, y, z, w; };
 #define __global__
 #define __device__
 #define __host__
@@ -177,16 +179,20 @@ extern "C" int emu_clusters(const float* setup, const int* ids, const int* count
 }
 
 extern "C" int emu_tiles(const float* binned, const int* counts, float* depth, float* attrs,
-                         int* work, int n_envs, int ntx, int nty, int th, int tw, int k) {
-  const int nthr = threads_for(th, tw);
-  if (nthr > MAX_THREADS) return 1;
+                         int* work, int n_envs, int ntx, int nty, int th, int tw, int k,
+                         int csize) {
+  const int nthr = tile_threads(th, tw, csize);
+  if (nthr == 0) return 1;
   blockDim.x = nthr;
-  for (int b = 0; b < n_envs * ntx * nty; ++b)
-    emu_cluster_run(1, nthr, [&](int, int) {
-      blockIdx.x = b;
-      tile_raster_kernel(binned, counts, depth, attrs, work, ntx * nty, ntx, th, tw,
-                         nty * th, ntx * tw, k);
+  for (int g = 0; g < n_envs * ntx * nty; ++g) {
+    std::vector<TileShared> sh(csize);
+    std::memset((void*)sh.data(), 0xff, sizeof(TileShared) * csize);  // NaN until staged
+    emu_cluster_run(csize, nthr, [&](int r, int) {
+      blockIdx.x = g * csize + r;
+      tile_cta(sh[r], g, r, csize, binned, counts, depth, attrs, work, ntx * nty, ntx, th, tw,
+               nty * th, ntx * tw, k);
     });
+  }
   return 0;
 }
 
@@ -220,7 +226,7 @@ def emulated(tmp_path_factory):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     so.emu_clusters.argtypes = [vp] * 7 + [i32] * 9
     so.emu_clusters.restype = i32
-    so.emu_tiles.argtypes = [vp] * 5 + [i32] * 6
+    so.emu_tiles.argtypes = [vp] * 5 + [i32] * 7
     so.emu_tiles.restype = i32
     so.emu_rejects.argtypes = [vp] * 4 + [i32]
     so.emu_rejects.restype = None
@@ -293,29 +299,85 @@ def test_cluster_kernel_source_on_hard_triangles(emulated):
     _assert_same(depth, attrs, work, params, ref, ref_work)
 
 
-@pytest.mark.parametrize("tile_h,tile_w", [(32, 64), (16, 128)])
-def test_tile_kernel_source_matches_plain(emulated, tile_h, tile_w):
-    params, setup, aabb, valid = city_setup(tile_h=tile_h, tile_w=tile_w)
+def _covering_row():
+    """A setup row that covers every pixel, nearer than anything in the
+    scenes, with its own colour and material."""
+    row = torch.zeros(tp.N_FIELDS)
+    row[tp.F_L0 + 2] = row[tp.F_L1 + 2] = 0.25
+    row[tp.F_Z + 2] = 1e-3
+    row[tp.F_IW + 2] = 1.0
+    row[tp.F_COL + 2] = 0.5
+    row[tp.F_MAT] = 5.0
+    return row
+
+
+def _tile_lists(scene, tile_h, tile_w, k):
+    """(params, binned, counts) of one scene through the triangle binning;
+    `past_count` cuts the city's lists to lengths that are no multiple of
+    32 and fills every slot past them with _covering_row, which draws
+    wherever a kernel reads past a list."""
+    if scene == "hard":
+        params, setup, aabb, valid = hard_setup(tile_h=tile_h, tile_w=tile_w)
+        params = params.replace(max_tris_per_tile=k)
+    else:
+        size = (128, 128) if scene == "fleet" else (256, 128)
+        params, setup, aabb, valid = city_setup(*size, tile_h=tile_h, tile_w=tile_w, k=k)
     binned, counts = tp.bin_triangles(setup, aabb, valid, params)
+    if scene == "past_count":
+        counts = torch.clamp(counts, max=k) * 3 // 4 | 1
+        past = torch.arange(k)[None, :] >= counts[:, None]
+        binned[past] = _covering_row()
+        assert (counts % 32 != 0).all() and (counts > 64).any()
+    return params, binned.contiguous(), counts
+
+
+@pytest.mark.parametrize("scene,tile_h,tile_w,k,ctas", [
+    pytest.param("city", 32, 64, 128, 1, id="32-64"),
+    pytest.param("city", 16, 128, 128, 2, id="16-128"),
+    # the tile fleet's 64x128 tile: 32 rectangles, in 2 rounds of 16 warps on 1 CTA
+    pytest.param("fleet", 64, 128, 128, 1, id="fleet-tile-1cta"),
+    pytest.param("fleet", 64, 128, 128, 2, id="fleet-tile-2ctas"),
+    pytest.param("fleet", 64, 128, 128, 4, id="fleet-tile-4ctas"),
+    pytest.param("fleet", 64, 128, 128, 8, id="fleet-tile-8ctas"),
+    pytest.param("past_count", 32, 64, 128, 2, id="past-count"),
+    pytest.param("city", 32, 64, 40, 4, id="overflow-k40"),
+    pytest.param("hard", 32, 64, 256, 2, id="hard"),
+    # 3 x 2 clipped rectangles dealt to 4 CTAs of 2 warps: two idle warps
+    pytest.param("city", 20, 48, 128, 4, id="unsplit-20-48"),
+])
+def test_tile_kernel_source_matches_plain(emulated, scene, tile_h, tile_w, k, ctas):
+    """The tile kernel over `ctas` CTAs per tile, bit for bit and in work
+    against its plain version: the slots past a tile's count (copies of the
+    scene's triangle 0 from binning, _covering_row here) must not draw or
+    count; a list longer than K (K = 40: no multiple of 32) is cut at K;
+    slivers, near-clipped triangles and coplanar duplicates keep their
+    winners; a tile that does not split into 8 x 32 rectangles is clipped."""
+    params, binned, counts = _tile_lists(scene, tile_h, tile_w, k)
     ref_work = torch.zeros(params.n_tiles, dtype=torch.int32)
     ref = tr.rasterize_tiles_reference(binned, params, counts, ref_work)
     depth, attrs, work = _outputs(params)
-    binned = binned.contiguous()
     rc = emulated.emu_tiles(
         binned.data_ptr(), counts.data_ptr(), depth.data_ptr(), attrs.data_ptr(),
         work.data_ptr(), 1, params.tiles_x, params.tiles_y, params.tile_h, params.tile_w,
-        params.max_tris_per_tile)
+        params.max_tris_per_tile, ctas)
     assert rc == 0
     _assert_same(depth, attrs, work, params, ref, ref_work)
     assert (counts > 32).any()  # a list longer than one staged block
+    if scene == "city" and k == 40:
+        assert (counts > k).any()
 
 
-@pytest.mark.parametrize("kernel", ["tiles", "clusters"])
+@pytest.mark.parametrize("kernel", ["tiles", "clusters", "tiles-fleet"])
 def test_batched_kernel_source_matches_plain(emulated, kernel):
-    """The env-batched launches of both kernels on 3 envs (one CTA per
-    tile); the cluster kernel's exit reads the quantized zmin."""
+    """The env-batched launches of both kernels on 3 envs, one CTA per
+    tile (the cluster kernel's exit reads the quantized zmin); and the tile
+    kernel on the tile fleet's shapes: 128x128 views in two 64x128 tiles,
+    K = 128 (some lists overflow it), 2 CTAs per tile."""
     envs = 3
-    params, setup, aabb, valid = city_setup_batched(envs)[:4]
+    if kernel == "tiles-fleet":
+        params, setup, aabb, valid = city_setup_batched(envs, 128, 128, 64, 128, k=128)[:4]
+    else:
+        params, setup, aabb, valid = city_setup_batched(envs)[:4]
     hp, wp = params.tiles_y * params.tile_h, params.tiles_x * params.tile_w
     depth = torch.full((envs, hp, wp), -7.0)
     attrs = torch.full((envs, tr.N_ATTR, hp, wp), -7.0)
@@ -337,7 +399,9 @@ def test_batched_kernel_source_matches_plain(emulated, kernel):
         binned = binned.contiguous()
         rc = emulated.emu_tiles(binned.data_ptr(), counts.data_ptr(), depth.data_ptr(),
                                 attrs.data_ptr(), work.data_ptr(), envs, *geo,
-                                params.max_tris_per_tile)
+                                params.max_tris_per_tile, 2 if kernel == "tiles-fleet" else 1)
+        if kernel == "tiles-fleet":
+            assert (counts > params.max_tris_per_tile).any()
     assert rc == 0
     _assert_same(depth, attrs, work, params, ref, ref_work)
 
@@ -419,16 +483,24 @@ def test_warp_reject_is_exact(emulated):
 
 
 def test_ctas_per_tile():
-    """The wrapper's choice of CTAs per tile on a 132-SM card: a single 720p
-    frame's 120 tiles of 64x128 spread over 8 (the portable cluster size);
-    a fleet's thousands keep 1; a tile too large for 512 threads takes
-    enough CTAs to fit; a tile that does not split into 8x32 rectangles
-    raises."""
+    """The wrappers' choice of CTAs per tile on a 132-SM card, one rule for
+    both kernels: a single 720p frame's 120 tiles of 64x128 spread over 8
+    (the portable cluster size); the GLB fleet's thousands of 16x128 keep
+    1; a tile too large for a CTA takes enough CTAs to fit: the tile
+    fleet's 64x128 tiles (32 warps) take 4 on the tile kernel (256 threads
+    per CTA) and 2 on the cluster kernel (512). A tile that does not split
+    into 8x32 rectangles runs on the tile kernel (clipped rectangles,
+    split only while they divide evenly) and raises on the cluster
+    kernel."""
     p = tp.RasterParams()
-    assert trc.ctas_per_tile(120, p, 132) == 8
     fleet = p.replace(tile_h=16, tile_w=128)
-    assert trc.ctas_per_tile(1024 * 8, fleet, 132) == 1
-    assert trc.ctas_per_tile(64 * 8, fleet, 132) == 4
-    assert trc.ctas_per_tile(4096 * 2, p, 132) == 2  # 32 warps: 1024 threads on 1 CTA
+    for rule in (trc.ctas_per_tile, tr.ctas_per_tile):
+        assert rule(120, p, 132) == 8
+        assert rule(1024 * 8, fleet, 132) == 1
+        assert rule(64 * 8, fleet, 132) == 4
+    assert tr.ctas_per_tile(4096 * 2, p, 132) == 4
+    assert trc.ctas_per_tile(4096 * 2, p, 132) == 2
     with pytest.raises(ValueError):
         trc.ctas_per_tile(120, p.replace(tile_h=20), 132)
+    assert tr.ctas_per_tile(120, p.replace(tile_h=20), 132) == 4  # 3 x 4 rectangles
+    assert tr.ctas_per_tile(4096 * 2, p.replace(tile_h=8, tile_w=17 * 32), 132) == 1
