@@ -23,9 +23,14 @@ fleet -- in phases and exits non-zero at the first failure:
      on a 64 x 24 fleet of boxes, spheres and capsules;
   4. physics path: a 240-step rollout through the kernel, which must
      launch it once per step, overflow no pair list and keep every state
-     finite; then 20 steps of the plain path for its rate, whose
-     positions 99% of the envs must match within 1e-5 after 20 kernel-path
-     steps;
+     finite; the kernel against its plain version again on the next
+     step's operands, where the settled pile holds envs with more live
+     pairs (a valid contact) than the kernel's register round
+     (REGISTER_ROUND_PAIRS: the overflow rounds run), and for the record
+     against the plain version run with deterministic algorithms, whose
+     per-body sums then add in slot order as the kernel's do; then 20
+     steps of the plain path for its rate, whose positions 99% of the
+     envs must match within 1e-5 after 20 kernel-path steps;
   4b. staged kernels vs plain: the fleet SAT and the fleet solve kernels
      against their plain PyTorch versions on the card, at the main shape
      after 3 warm steps and on the mixed 64 x 24 fleet (SAT: validity may
@@ -33,8 +38,12 @@ fleet -- in phases and exits non-zero at the first failure:
      candidate ids there and friction / restitution / trigger exact;
      solve: within 2e-5 from the same pack); then the staged path: 240
      steps of step_planar_staged, one launch of each kernel per step, no
-     pair overflow, finite state, and after 20 steps 99% of the envs
-     within 1e-5 of the fused path's positions;
+     pair overflow, finite state, both kernels against their plain
+     versions again on the next step's operands (the solve also against
+     its plain version with deterministic algorithms; it fails unless
+     this or phase 4's settled check had an env past the register round),
+     and after 20 steps 99% of the envs within 1e-5 of the fused path's
+     positions;
   5. raster kernels vs plain: (a) rasterize_clusters on the city frame's
      own setup and cluster lists, (b) rasterize_tiles at 1280x720 on three
      cubes and a ground slab (no tile list overflows), each held to scx's
@@ -73,16 +82,22 @@ fleet -- in phases and exits non-zero at the first failure:
      launch, reward [E, 4]; then one rgbd n_agents=2 step of a 512-env tile
      fleet, whose observation through the kernel meets phase 5's contract
      against the plain rasterizer;
- 10. each raster kernel alone on phases 5 and 7's inputs: `kernel_ms`, the
-     device time of the CUDA kernel (scx_torch.profile_raster.kernel_ms:
-     torch.profiler), which the small cube frame's entry point hides
-     behind host dispatch. It runs after every rate, as the profiler may
-     leave a cost per launch behind it.
+ 10. each kernel alone: `kernel_ms`, the device time of the CUDA kernel
+     (scx_torch.timing.kernel_ms: torch.profiler), which a small
+     launch's entry point hides behind host dispatch; the raster kernels
+     on phases 5 and 7's inputs, the physics kernels on phases 3 and 4b's,
+     and the middle kernel on the operands of one step of each RL fleet
+     (taken from a real env.step in phase 8 by
+     scx_torch.profile_physics.rl_middle_operands), each with its bound
+     counted as phase 3 counts it (middle_bound). It runs after every rate, as
+     the profiler may leave a cost per launch behind it.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A kernel's `ms` is its entry point's
-time with CUDA events around 20 calls; the raster kernels add phase
-10's `kernel_ms`.
+time with CUDA events around 20 calls; every kernel adds phase 10's
+`kernel_ms`, the middle kernel its RL fleets' too. Phase 3 prints the
+physics kernels' shared memory per env and the CTAs (envs) and warps one
+SM holds at the fleets' shapes.
 Nothing of JAX is imported.
 """
 
@@ -105,6 +120,10 @@ SAT_TOL, SOLVE_TOL = 5e-6, 2e-5
 # validity may differ only at graze depth; cand exact where both are
 # valid; trig exact; vwc within 5e-5; lam within 5e-4
 GRAZE, VWC_TOL, LAM_TOL = 1e-5, 5e-5, 5e-4
+# live pairs (a valid contact) whose contacts the middle and solve kernels
+# hold in registers: 128 threads, one per contact, 4 per pair; an env with
+# more runs their overflow rounds
+REGISTER_ROUND_PAIRS = 32
 # the raster contract of scx (tests/test_render_clusters.py:43-49)
 DEPTH_TOL, ATTR_TOL, RGB_TOL = 1e-5, 1e-4, 1e-6
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM3 bytes/s, FP32 flop/s
@@ -132,31 +151,33 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def cuda_ms(fn, reps):
+def max_abs_diff(xs, ys) -> float:
+    return max((x.cpu() - y.cpu()).abs().max().item() for x, y in zip(xs, ys))
+
+
+def ordered(fn, *args):
+    """fn(*args) under torch.use_deterministic_algorithms: the plain
+    versions' per-body sums (scatter_add_) then add each body's terms in
+    slot order, as the kernels do, where by default they add in the order
+    the card's atomics land."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return fn(*args)
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
-def check_middle(tag, b, params, steps):
-    """Kernel vs plain middle on the card after `steps` warm steps."""
+def check_middle(tag, ops, params, ordered_plain=False):
+    """Kernel vs plain middle on the card on the middle's operands ops.
+    Returns (the larger max abs error, the most live pairs of an env).
+    With ordered_plain the record adds the kernel against the plain
+    version run under `ordered`."""
     import torch
 
     from scx_torch.physics import planar as pp
 
-    cache = pp.empty_planar_cache(b.shape.shape[0], params.max_pairs,
-                                  device=b.shape.device)
-    for _ in range(steps):
-        b, cache, _ = pp.step_planar_cached(b, params, cache)
-    _, ops, _ = pp.middle_operands(b, params, cache)
     ker = [x.cpu() for x in pp.middle(*ops, params)]  # .cpu() waits for the kernel
     ref = [x.cpu() for x in pp.middle_reference(*ops, params)]
     vwc_k, lam_k, cand_k, val_k, trig_k = ker
@@ -172,14 +193,21 @@ def check_middle(tag, b, params, steps):
     both = (val_k > 0.5) & (val_r > 0.5)
     err_vwc = (vwc_k - vwc_r).abs().max().item()
     err_lam = (lam_k - lam_r).abs().max().item()
+    live = int((val_r > 0.5).any(-2).sum(-1).max())
     rec = {
-        "check": tag, "envs": b.shape.shape[0], "bodies": b.n, "pairs": params.max_pairs,
-        "kinds": list(params.shape_kinds), "valid_contacts": int(both.sum()),
+        "check": tag, "envs": ops[0].shape[0], "bodies": ops[0].shape[-1],
+        "pairs": params.max_pairs, "kinds": list(params.shape_kinds),
+        "valid_contacts": int(both.sum()), "max_live_pairs_per_env": live,
+        "overflow_rounds": live > REGISTER_ROUND_PAIRS,
         "validity_flips": int(flips.sum()),
         "cand_mismatch": int((cand_k[both] != cand_r[both]).sum()),
         "trig_mismatch": int((trig_k != trig_r).sum()),
         "vwc_max_abs_err": err_vwc, "lam_max_abs_err": err_lam,
     }
+    if ordered_plain:
+        ref_o = ordered(pp.middle_reference, *ops, params)
+        rec["vs_ordered_plain_max_abs_err"] = max_abs_diff(ker, ref_o)
+        rec["plain_vs_ordered_plain_max_abs_diff"] = max_abs_diff(ref, ref_o)
     print(json.dumps(rec), flush=True)
     if int(both.sum()) == 0:
         fail(f"{tag}: no live contacts to compare")
@@ -187,24 +215,17 @@ def check_middle(tag, b, params, steps):
         fail(f"{tag}: discrete outputs differ")
     if not (err_vwc <= VWC_TOL and err_lam <= LAM_TOL):
         fail(f"{tag}: vwc err {err_vwc} (tol {VWC_TOL}), lam err {err_lam} (tol {LAM_TOL})")
-    return ops, max(err_vwc, err_lam)
+    return max(err_vwc, err_lam), live
 
 
-def check_staged(tag, b, params, steps):
-    """SAT and solve kernels vs their plain versions on the card after
-    `steps` warm staged steps. Returns (SAT operands, solve operands, the
-    SAT's and the solve's max abs error)."""
-    import torch
-
+def check_staged(tag, sat_ops, solve_ops, params, ordered_plain=False):
+    """SAT and solve kernels vs their plain versions on the card on the
+    staged step's operands. Returns (the SAT's and the solve's max abs
+    error, the most live pairs of an env). ordered_plain as in
+    check_middle, for the solve."""
     from scx_torch.physics import planar as pp
 
     kinds = params.shape_kinds
-    cache = pp.empty_planar_cache(b.shape.shape[0], params.max_pairs, device=b.shape.device)
-    for _ in range(steps):
-        b, cache, _ = pp.step_planar_staged(b, params, cache)
-    b = pp.planar_integrate_velocities(b, params.dt, params.gravity)
-    ia, ib, pair_valid, _ = pp.planar_broadphase(b, params.max_pairs)
-    sat_ops = pp._sat_inputs(b, ia, ib, pair_valid)
     ker = [x.cpu() for x in pp.sat_fleet(*sat_ops, kinds)]
     ref = [x.cpu() for x in pp.sat_reference(*sat_ops, kinds)]
     flips = ker[7] != ref[7]
@@ -215,19 +236,25 @@ def check_staged(tag, b, params, steps):
     pair_mismatch = sum(int((k != r).sum()) for k, r in zip(ker[9:], ref[9:]))
     cand_mismatch = int((ker[8][both] != ref[8][both]).sum())
 
-    con = pp.planar_contacts(b, ia, ib, pair_valid, kinds)
-    lam0 = pp.planar_gather_warm(cache, ia, ib, pair_valid, con.cand)
-    jac, vw0, _ = pp.solve_pack(b, con, params, ia, ib, lam0)
-    solve_ops = (jac, ia, ib, vw0)
+    jac = solve_ops[0]
+    q_cv = pp._solve_q("cvalid") * 4
+    live = int((jac[:, q_cv:q_cv + 4] > 0.5).any(1).sum(-1).max())
     vw_k, lam_k = (x.cpu() for x in pp.solve_fleet(*solve_ops, params.iterations))
     vw_r, lam_r = (x.cpu() for x in pp.solve_reference(*solve_ops, params.iterations))
     err_solve = max((vw_k - vw_r).abs().max().item(), (lam_k - lam_r).abs().max().item())
+    extra = {}
+    if ordered_plain:
+        ref_o = ordered(pp.solve_reference, *solve_ops, params.iterations)
+        extra = {"solve_vs_ordered_plain_max_abs_err": max_abs_diff((vw_k, lam_k), ref_o),
+                 "solve_plain_vs_ordered_plain_max_abs_diff": max_abs_diff((vw_r, lam_r),
+                                                                           ref_o)}
     print(json.dumps({
-        "check": f"staged {tag}", "envs": b.shape.shape[0], "bodies": b.n,
+        "check": f"staged {tag}", "envs": jac.shape[0], "bodies": solve_ops[3].shape[-1],
         "pairs": params.max_pairs, "kinds": list(kinds), "valid_contacts": int(both.sum()),
+        "max_live_pairs_per_env": live, "overflow_rounds": live > REGISTER_ROUND_PAIRS,
         "sat_validity_flips": int(flips.sum()), "sat_cand_mismatch": cand_mismatch,
         "sat_pair_plane_mismatch": pair_mismatch, "sat_max_abs_err": err_sat,
-        "solve_max_abs_err": err_solve, "warm_impulse_sum": float(lam_r.abs().sum()),
+        "solve_max_abs_err": err_solve, "warm_impulse_sum": float(lam_r.abs().sum()), **extra,
     }), flush=True)
     if int(both.sum()) == 0 or float(lam_r.abs().sum()) == 0.0:
         fail(f"staged {tag}: no live contacts or impulses to compare")
@@ -236,7 +263,7 @@ def check_staged(tag, b, params, steps):
     if not (err_sat <= SAT_TOL and err_solve <= SOLVE_TOL):
         fail(f"staged {tag}: SAT err {err_sat} (tol {SAT_TOL}), solve err {err_solve} "
              f"(tol {SOLVE_TOL})")
-    return sat_ops, solve_ops, err_sat, err_solve
+    return err_sat, err_solve, live
 
 
 def reset_counts():
@@ -292,6 +319,65 @@ def bound(bytes_moved: float, ops: float):
     bytes over HBM bandwidth and the operations over the FP32 peak."""
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def pair_bodies(ia, ib, pair_valid, n: int) -> int:
+    """Distinct (env, body) among the bodies of the pair-valid slots; n is
+    the bodies per env."""
+    import torch
+
+    e = ia.shape[0]
+    idx = torch.where(torch.cat([pair_valid, pair_valid], -1),
+                      torch.cat([ia, ib], -1).long(), n)
+    used = torch.zeros((e, n + 1), dtype=torch.bool, device=ia.device)
+    used.scatter_(1, idx, True)
+    return int(used[:, :n].sum())
+
+
+def middle_bound(ops, params):
+    """(bound ms, by, bytes, operations, pair-valid share) of the middle
+    kernel on ops. Bytes: ia, ib, pvf, vw0 and every output once; of the
+    body rows only those of the bodies in pair-valid slots, and of prev
+    only the pair-valid slots' columns (the rest is not needed).
+    Operations: the plain version's on the pair-valid slots."""
+    from scx_torch.physics import planar as pp
+
+    rows, ia, ib, pvf, prev, vw0 = ops
+    pv = pvf > 0.5
+    share = pv.float().mean().item()
+    outs = pp.middle_reference(*ops, params)
+    nbytes = 4 * (sum(x.numel() for x in (ia, ib, pvf, vw0, *outs))
+                  + rows.shape[1] * pair_bodies(ia, ib, pv, rows.shape[-1]) + prev.shape[1] * int(pv.sum()))
+    nops = count_ops(lambda: pp.middle_reference(*ops, params)) * share
+    return (*bound(nbytes, nops), nbytes, nops, share)
+
+
+def physics_residency(card):
+    """Shared memory per env and the CTAs (envs) and warps one SM holds, of
+    the middle kernel at the three fleets' body counts and of the solve
+    kernel at the pile's (P=128)."""
+    import ctypes
+
+    from scx_torch import _build
+    from scx_torch.physics import planar as pp
+
+    lib, ctas, rec = _build.load(), ctypes.c_int(), {}
+    dev = 0
+    for nb in (64, 160, 512):
+        pp._middle_check_shape(dev, 1, nb, 128)
+        smem = lib.scx_planar_middle_smem_bytes(nb, 128)
+        if lib.scx_planar_middle_occupancy(1, smem, ctypes.byref(ctas)) != 0:
+            fail("middle kernel occupancy query failed")
+        rec[f"planar_middle N={nb}"] = {"smem_bytes_per_env": smem, "ctas_per_sm": ctas.value,
+                                        "warps_per_sm": 4 * ctas.value}
+    pp._solve_check_shape(dev, 64, 128)
+    smem = lib.scx_planar_solve_smem_bytes(64, 128)
+    if lib.scx_planar_solve_occupancy(smem, ctypes.byref(ctas)) != 0:
+        fail("solve kernel occupancy query failed")
+    rec["planar_solve N=64"] = {"smem_bytes_per_env": smem, "ctas_per_sm": ctas.value,
+                                "warps_per_sm": 4 * ctas.value}
+    print(json.dumps({"check": "physics residency", "pairs": 128, **rec, "card": card}),
+          flush=True)
 
 
 def raster_bound(work, pass_a_rows: int, won_rows: int, pass_a_pixels, params,
@@ -420,7 +506,7 @@ def main():
     # ---- 1. device ----------------------------------------------------
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
-    from scx_torch import _build, profile_raster
+    from scx_torch import _build, profile_physics
     from scx_torch.app import rlenv
     from scx_torch.ops import raster as tr
     from scx_torch.ops import raster_clusters as trc
@@ -430,6 +516,7 @@ def main():
     from scx_torch.render import city
     from scx_torch.render import pipeline as rp
     from scx_torch.render.cubes import cube_frame
+    from scx_torch.timing import cuda_ms, kernel_ms
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -449,22 +536,22 @@ def main():
 
     # ---- 3. middle kernel vs plain ----------------------------------------
     params = SolverParams(max_pairs=128, iterations=6, shape_kinds=("box",))
-    ops, err_main = check_middle("main", fleet.build_pile_fleet(ENVS, BODIES, dev), params, 3)
-    kernel_ms = cuda_ms(lambda: pp.middle(*ops, params), 20)
+    ops = profile_physics.middle_operands(fleet.build_pile_fleet(ENVS, BODIES, dev), params)
+    err_main, _ = check_middle("main", ops, params)
+    middle_ms = cuda_ms(lambda: pp.middle(*ops, params), 20)
     plain_ms = cuda_ms(lambda: pp.middle_reference(*ops, params), 3)
-    print(json.dumps({"middle_ms": kernel_ms, "middle_plain_ms": plain_ms,
+    print(json.dumps({"middle_ms": middle_ms, "middle_plain_ms": plain_ms,
                       "envs": ENVS, "bodies": BODIES, "pairs": 128, "card": card}), flush=True)
-    # bound: every operand read once and every output written once; the
-    # plain version's operations on the live pair slots
-    live = (ops[3] > 0.5).float().mean().item()
-    outs = pp.middle_reference(*ops, params)
-    mid_bytes = 4 * sum(x.numel() for x in (*ops, *outs))
-    mid_ops = count_ops(lambda: pp.middle_reference(*ops, params)) * live
-    mid_bound, mid_by = bound(mid_bytes, mid_ops)
+    mid_bound, mid_by, mid_bytes, mid_ops, live = middle_bound(ops, params)
     print(json.dumps({"middle_bound_ms": mid_bound, "bound_by": mid_by, "bytes": mid_bytes,
-                      "operations": mid_ops, "live_pair_share": live}), flush=True)
+                      "operations": mid_ops, "pair_valid_share": live}), flush=True)
     mixed = SolverParams(max_pairs=128, iterations=6)
-    check_middle("mixed", fleet.build_mixed_fleet(64, 24, 5, dev), mixed, 3)
+    check_middle("mixed", profile_physics.middle_operands(
+        fleet.build_mixed_fleet(64, 24, 5, dev), mixed), mixed)
+    physics_residency(card)
+    # the kernels alone are timed after the rate phases (phase 10)
+    alone = [("planar_middle", "planar_middle_kernel",
+              functools.partial(pp.middle, *ops, params))]
 
     # ---- 4. the physics path ----------------------------------------------
     def run(step_fn, steps):
@@ -475,10 +562,10 @@ def main():
         b, cache, ovf = fleet.rollout(b, cache, params, steps, step_fn=step_fn)
         torch.cuda.synchronize()
         ovf = int(ovf.item())
-        return b, ovf, time.perf_counter() - t
+        return b, cache, ovf, time.perf_counter() - t
 
     reset_counts()
-    b, ovf, secs = run(pp.step_planar_cached, STEPS)
+    b, cache, ovf, secs = run(pp.step_planar_cached, STEPS)
     launches = pp.MIDDLE_KERNEL_LAUNCHES
     finite = all(
         torch.isfinite(x).all().item()
@@ -493,14 +580,20 @@ def main():
         fail(f"pair overflow {ovf} in the main path")
     if not finite or tuple(b.pos.y.shape) != (ENVS, BODIES):
         fail("the main path's state is not finite or has the wrong shape")
-    b_plain, _, secs_plain = run(
+    # the kernel vs plain once the pile has settled: envs past the register
+    # round run the overflow rounds
+    err_settled, settled = check_middle(f"main after {STEPS} steps",
+                                        pp.middle_operands(b, params, cache)[1], params,
+                                        ordered_plain=True)
+    err_main = max(err_main, err_settled)
+    b_plain, _, _, secs_plain = run(
         functools.partial(pp.step_planar_cached, middle_fn=pp.middle_reference), PLAIN_STEPS)
     print(json.dumps({"metric": "physics_env_steps_per_sec", "path": "plain-torch",
                       "value": ENVS * PLAIN_STEPS / secs_plain, "envs": ENVS,
                       "bodies": BODIES, "steps": PLAIN_STEPS, "seconds": secs_plain,
                       "card": card}), flush=True)
     # the two paths' trajectories from the same fleet
-    b_kern, _, _ = run(pp.step_planar_cached, PLAIN_STEPS)
+    b_kern = run(pp.step_planar_cached, PLAIN_STEPS)[0]
     dev_env = torch.stack([(x - y).abs() for x, y in zip(b_kern.pos, b_plain.pos)]).amax((0, 2))
     print(json.dumps({"check": "trajectory", "steps": PLAIN_STEPS,
                       "pos_max_abs_diff": dev_env.max().item(),
@@ -512,20 +605,30 @@ def main():
         fail("the kernel path's trajectory departs from the plain path's")
 
     # ---- 4b. the staged kernels vs plain, and the staged path ---------------
-    sat_ops, solve_ops, err_sat, err_solve = check_staged(
-        "main", fleet.build_pile_fleet(ENVS, BODIES, dev), params, 3)
-    check_staged("mixed", fleet.build_mixed_fleet(64, 24, 5, dev), mixed, 3)
+    def staged_ops(b, p, steps=3):
+        return profile_physics.staged_operands(
+            *profile_physics.warm(b, p, steps, pp.step_planar_staged), p)
+
+    sat_ops, solve_ops = staged_ops(fleet.build_pile_fleet(ENVS, BODIES, dev), params)
+    err_sat, err_solve, _ = check_staged("main", sat_ops, solve_ops, params)
+    check_staged("mixed", *staged_ops(fleet.build_mixed_fleet(64, 24, 5, dev), mixed), mixed)
     kinds, iters = params.shape_kinds, params.iterations
+    alone += [("planar_sat", "planar_sat_kernel",
+               functools.partial(pp.sat_fleet, *sat_ops, kinds)),
+              ("planar_solve", "planar_solve_kernel",
+               functools.partial(pp.solve_fleet, *solve_ops, iters))]
     sat_ms = cuda_ms(lambda: pp.sat_fleet(*sat_ops, kinds), 20)
     sat_plain_ms = cuda_ms(lambda: pp.sat_reference(*sat_ops, kinds), 3)
     solve_ms = cuda_ms(lambda: pp.solve_fleet(*solve_ops, iters), 20)
     solve_plain_ms = cuda_ms(lambda: pp.solve_reference(*solve_ops, iters), 3)
-    # bounds: every operand read once, every output written once; the plain
-    # version's operations on the slots that hold work (valid pairs for the
-    # SAT, pairs with a valid contact for the solve)
+    # bounds: what the function needs read once, every output written once;
+    # the plain version's operations on the slots that hold work (valid
+    # pairs for the SAT, pairs with a valid contact for the solve). The SAT
+    # needs pvf whole and the ga/gb columns of the pair-valid slots only
     sat_outs = pp.sat_reference(*sat_ops, kinds)
-    sat_bytes = 4 * sum(x.numel() for x in (*sat_ops, *sat_outs))
     sat_live = (sat_ops[2] > 0.5).float().mean().item()
+    sat_bytes = 4 * (sum(x.numel() for x in (sat_ops[2], *sat_outs))
+                     + (sat_ops[0].numel() + sat_ops[1].numel()) * sat_live)
     sat_count = count_ops(lambda: pp.sat_reference(*sat_ops, kinds)) * sat_live
     sat_bound, sat_by = bound(sat_bytes, sat_count)
     # the solve reads its indices and velocities and writes its outputs
@@ -552,7 +655,7 @@ def main():
 
     run(pp.step_planar_staged, 3)  # warm: the solve kernel's first launch sets its attributes
     reset_counts()
-    b_st, ovf, secs = run(pp.step_planar_staged, STEPS)
+    b_st, cache_st, ovf, secs = run(pp.step_planar_staged, STEPS)
     sat_launches, solve_launches = pp.SAT_KERNEL_LAUNCHES, pp.SOLVE_KERNEL_LAUNCHES
     print(json.dumps({"metric": "physics_env_steps_per_sec", "path": "cuda-staged",
                       "value": ENVS * STEPS / secs, "envs": ENVS, "bodies": BODIES,
@@ -565,7 +668,14 @@ def main():
     if not all(torch.isfinite(x).all().item()
                for x in (*b_st.pos, *b_st.quat, *b_st.vel, *b_st.omega)):
         fail("the staged path's state is not finite")
-    b_st, _, _ = run(pp.step_planar_staged, PLAIN_STEPS)
+    err_sat_st, err_solve_st, settled_st = check_staged(
+        f"main after {STEPS} steps", *profile_physics.staged_operands(b_st, cache_st, params),
+        params, ordered_plain=True)
+    err_sat, err_solve = max(err_sat, err_sat_st), max(err_solve, err_solve_st)
+    if max(settled, settled_st) <= REGISTER_ROUND_PAIRS:
+        fail(f"after {STEPS} steps no env holds more than {REGISTER_ROUND_PAIRS} live pairs: "
+             "the overflow rounds were not compared")
+    b_st = run(pp.step_planar_staged, PLAIN_STEPS)[0]
     dev_env = torch.stack([(x - y).abs() for x, y in zip(b_kern.pos, b_st.pos)]).amax((0, 2))
     print(json.dumps({"check": "staged vs fused trajectory", "steps": PLAIN_STEPS,
                       "pos_max_abs_diff": dev_env.max().item(),
@@ -594,10 +704,9 @@ def main():
     if not torch.equal(work_k, work_p):
         fail("rasterize_clusters: pass A's work per tile differs from the plain version's")
     cl_ms = cuda_ms(lambda: trc.rasterize_clusters(setup, ids, counts, fparams, kc, zmin), 20)
-    # the kernel alone is timed after the rate phases (phase 10): the profiler
-    # may leave a cost per launch behind it
-    alone = [("rasterize_clusters", "cluster_raster_kernel",
-              functools.partial(trc.rasterize_clusters, setup, ids, counts, fparams, kc, zmin))]
+    alone.append(("rasterize_clusters", "cluster_raster_kernel",
+                  functools.partial(trc.rasterize_clusters, setup, ids, counts, fparams, kc,
+                                    zmin)))
     cl_plain_ms = cuda_ms(
         lambda: trc.rasterize_clusters_reference(setup, ids, counts, fparams, kc, zmin), 2)
     cl_pixels, cl_rows = cluster_pass_a_pixels(setup[None], aabb[None], ids[None],
@@ -770,6 +879,7 @@ def main():
         }), flush=True)
 
     # ---- 8. the RL path: reset/step/rollout at full width ------------------
+    rl_middle = {}
     for name, env in fleets.items():
         act = torch.tensor([rlenv.FLEET_ACTIONS[name]], device=dev).repeat(env.n_envs, 1)
         kname = ("rasterize_clusters_batched" if env.raster.use_clusters
@@ -818,6 +928,8 @@ def main():
         print(json.dumps({"check": f"{name} observations", "covered_share":
                           covered.float().mean().item(), "reward_mean": reward.mean().item(),
                           "obs_mean": means[-1].mean().item()}), flush=True)
+        # the middle's operands of the next step, for phase 10
+        rl_middle[name] = (profile_physics.rl_middle_operands(env, act), env.sim.solver)
     del fleets
     # one unbaked step of the tile fleet, rendered by the kernel and plainly
     env = rlenv.make_fleet("tiles", dev, static_bake=False)
@@ -916,32 +1028,47 @@ def main():
         fail("two-agent tile fleet: wrong shapes, nothing covered, or a faulty step")
     del env
 
-    # ---- 10. each raster kernel alone, on phases 5 and 7's inputs ----------
+    # ---- 10. each kernel alone: phases 3, 4b, 5 and 7's inputs, RL fleets --
     kernel_alone = {}
     for kname, cuda_name, kernel in alone:
-        kernel_alone[kname] = profile_raster.kernel_ms(kernel, 20, cuda_name)
+        kernel_alone[kname] = kernel_ms(kernel, 20, cuda_name)
         print(json.dumps({"check": f"{kname} alone", "kernel_ms": kernel_alone[kname],
                           "card": card}), flush=True)
     del alone
     for kname in ("rasterize_clusters_batched", "rasterize_tiles_batched"):
         batched[kname]["kernel_ms"] = kernel_alone[kname]
+    rl_alone = {}
+    for name, (rops, solver) in rl_middle.items():
+        k_ms = kernel_ms(functools.partial(pp.middle, *rops, solver), 20,
+                         "planar_middle_kernel")
+        b_ms, b_by, b_bytes, b_ops, b_live = middle_bound(rops, solver)
+        rl_alone[name] = {"envs": int(rops[0].shape[0]), "bodies": int(rops[0].shape[-1]),
+                          "pairs": int(rops[1].shape[-1]), "kernel_ms": k_ms,
+                          "bound_ms": b_ms, "bound_by": b_by}
+        print(json.dumps({"check": "planar_middle alone", "fleet": name, **rl_alone[name],
+                          "bytes": b_bytes, "operations": b_ops, "pair_valid_share": b_live,
+                          "card": card}), flush=True)
+    del rl_middle
 
     # ---- 11. records -----------------------------------------------------
     print(json.dumps({"kernels": [
         {"name": "planar_middle", "route": "cuda",
          "source": "scx_torch/physics/csrc/planar_middle.cu",
          "replaces": "scx/physics/planar.py:1786", "launches": launches,
-         "max_abs_err": err_main, "ms": kernel_ms, "plain_ms": plain_ms,
-         "bound_ms": mid_bound, "bound_by": mid_by, "library_ms": None},
+         "max_abs_err": err_main, "ms": middle_ms, "kernel_ms": kernel_alone["planar_middle"],
+         "plain_ms": plain_ms, "bound_ms": mid_bound, "bound_by": mid_by, "library_ms": None,
+         "rl_fleets": rl_alone},
         {"name": "planar_sat", "route": "cuda",
          "source": "scx_torch/physics/csrc/planar_staged.cu",
          "replaces": "scx/physics/planar.py:818", "launches": sat_launches,
-         "max_abs_err": err_sat, "ms": sat_ms, "plain_ms": sat_plain_ms,
+         "max_abs_err": err_sat, "ms": sat_ms, "kernel_ms": kernel_alone["planar_sat"],
+         "plain_ms": sat_plain_ms,
          "bound_ms": sat_bound, "bound_by": sat_by, "library_ms": None},
         {"name": "planar_solve", "route": "cuda",
          "source": "scx_torch/physics/csrc/planar_staged.cu",
          "replaces": "scx/physics/planar.py:1283", "launches": solve_launches,
-         "max_abs_err": err_solve, "ms": solve_ms, "plain_ms": solve_plain_ms,
+         "max_abs_err": err_solve, "ms": solve_ms, "kernel_ms": kernel_alone["planar_solve"],
+         "plain_ms": solve_plain_ms,
          "bound_ms": solve_bound, "bound_by": solve_by, "library_ms": None},
         {"name": "rasterize_clusters", "route": "cuda",
          "source": "scx_torch/ops/csrc/raster.cu",

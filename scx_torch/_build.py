@@ -100,8 +100,10 @@ def load() -> ctypes.CDLL:
     lib.scx_planar_middle.restype = i32
     lib.scx_planar_middle_smem_bytes.argtypes = [i32, i32]
     lib.scx_planar_middle_smem_bytes.restype = ctypes.c_longlong
-    lib.scx_planar_middle_prepare.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.scx_planar_middle_prepare.argtypes = [i32, ctypes.c_longlong, ctypes.POINTER(i32)]
     lib.scx_planar_middle_prepare.restype = i32
+    lib.scx_planar_middle_occupancy.argtypes = [i32, ctypes.c_longlong, ctypes.POINTER(i32)]
+    lib.scx_planar_middle_occupancy.restype = i32
     lib.scx_planar_layout.argtypes = [ctypes.POINTER(i32)]
     lib.scx_planar_layout.restype = None
     lib.scx_planar_sat.argtypes = [vp] * 6 + [i32] * 3 + [vp]
@@ -110,8 +112,10 @@ def load() -> ctypes.CDLL:
     lib.scx_planar_solve.restype = i32
     lib.scx_planar_solve_smem_bytes.argtypes = [i32, i32]
     lib.scx_planar_solve_smem_bytes.restype = ctypes.c_longlong
-    lib.scx_planar_solve_prepare.argtypes = [ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.scx_planar_solve_prepare.argtypes = [ctypes.c_longlong, ctypes.POINTER(i32)]
     lib.scx_planar_solve_prepare.restype = i32
+    lib.scx_planar_solve_occupancy.argtypes = [ctypes.c_longlong, ctypes.POINTER(i32)]
+    lib.scx_planar_solve_occupancy.restype = i32
     lib.scx_raster_clusters.argtypes = [vp] * 7 + [i32] * 9 + [vp]
     lib.scx_raster_clusters.restype = i32
     lib.scx_raster_tiles.argtypes = [vp] * 5 + [i32] * 7 + [vp]

@@ -1,11 +1,13 @@
 // Device code shared by the planar physics kernels (sm_90a): the plane
 // vector/quaternion/matrix helpers, the box/sphere/capsule contact
 // candidate generators (scx/physics/planar.py::_pair_candidates), the
-// first-max top-K contact select (_sat_core) and the deterministic
-// per-body sums of the Jacobi sweeps. planar_middle.cu (the fused middle)
-// and planar_staged.cu (the fleet SAT and the fleet solve) include it, so
-// the three kernels run the same device functions. Plain C++ apart from
-// the CUDA keywords: the CPU tests build it with g++ and a small shim.
+// first-max top-K contact select (_sat_core), the compaction and per-body
+// list helpers, and the relaxed-Jacobi sweeps with their deterministic
+// per-body sums (jacobi_sweeps). planar_middle.cu (the fused middle) and
+// planar_staged.cu (the fleet SAT and the fleet solve) include it, so the
+// three kernels run the same device functions. Plain C++ apart from the
+// CUDA keywords, warp intrinsics and one named barrier: the CPU tests
+// build it with g++ and a small shim that defines those.
 //
 // The constants below have one definition on the Python side as well
 // (scx_torch/physics/contacts.py, scx_torch/physics/planar.py);
@@ -489,46 +491,279 @@ __device__ __forceinline__ void select_top_k(const Cand cands[NCAND], bool pair_
   }
 }
 
-// Per-body incidence lists of an env's pairs, built by the whole block:
-// ia_s / ib_s [P] hold each pair slot's bodies, -1 for a slot that takes no
-// part. Afterwards list[off[j] .. off[j+1]) holds body j's pair slots of
-// the a side ascending, then of the b side (+P) ascending. Every thread of
-// the block calls it; ia_s / ib_s are written and visible on entry.
-__device__ __forceinline__ void build_incidence(const int* ia_s, const int* ib_s, int* off,
-                                                int* list, int n, int np) {
-  const int p = threadIdx.x;
-  for (int j = p; j < n; j += blockDim.x) {
-    int c = 0;
-    for (int q = 0; q < np; ++q) c += (ia_s[q] == j) + (ib_s[q] == j);
-    off[j + 1] = c;
-  }
+// ---------------------------------------------------------------------------
+// The relaxed-Jacobi sweeps (scx's _iter_loop), shared by the fused middle
+// and the fleet solve. One CTA per env. The env's live pairs (those with a
+// valid contact, ascending slot order) are numbered i = 0..m-1; contact k
+// of pair i is contact c = 4 i + k and runs on lane c of the CTA's live
+// threads (warps 0..nwarps-1), so a pair's K contacts sit on 4 adjacent
+// lanes of one warp. When 4 m exceeds the live threads, a thread takes
+// contacts c, c + nthr, ... in rounds: round 0 keeps its invariants and
+// impulses in registers, a later round (overflow) gets its invariants
+// again from a loader each sweep and keeps its impulses in the kernel's
+// lam output.
+//
+// Body sums are the same on every run, with no float atomics: each pair
+// sums its K contacts in k order (((u0 + u1) + u2) + u3, gathered with
+// warp shuffles) and writes its a side and its negated b side to upd; then
+// one task per (component, body) sums that body's entries in list order:
+// its a-side pairs ascending, then its b-side pairs ascending. Bodies in
+// no live pair get no task; a caller adds +0 to them once at the end,
+// which is what adding their empty sums would have done.
+// ---------------------------------------------------------------------------
+
+#ifndef SCX_PLANAR_SHIM  // the CPU tests' shim defines these itself
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+__device__ __forceinline__ int ldg(const int* p) { return __ldg(p); }
+// Barrier over the env's live warps 0..nwarps-1 (named barrier 1; warp 0
+// alone needs only __syncwarp).
+__device__ __forceinline__ void live_sync(int nwarps) {
+  if (nwarps > 1)
+    asm volatile("bar.sync 1, %0;" ::"r"(nwarps * 32) : "memory");
+  else
+    __syncwarp();
+}
+#endif
+
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ unsigned lanes_below(int lane) { return (1u << lane) - 1u; }
+
+// Rank of this thread's flag among the set flags of the CTA (in thread
+// order); `total` gets their count. Every thread calls it; two barriers;
+// scratch holds blockDim.x / 32 ints.
+__device__ __forceinline__ int block_rank(bool flag, int* scratch, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned b = __ballot_sync(FULL, flag);
+  if (lane == 0) scratch[warp] = __popc(b);
   __syncthreads();
-  if (p == 0) {
-    off[0] = 0;
-    for (int j = 0; j < n; ++j) off[j + 1] += off[j];
+  int before = 0, all = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    const int c = scratch[w];
+    before += w < warp ? c : 0;
+    all += c;
   }
-  __syncthreads();
-  for (int j = p; j < n; j += blockDim.x) {
-    int o = off[j];
-    for (int q = 0; q < np; ++q)
-      if (ia_s[q] == j) list[o++] = q;
-    for (int q = 0; q < np; ++q)
-      if (ib_s[q] == j) list[o++] = np + q;
-  }
-  __syncthreads();
+  __syncthreads();  // scratch may be written again
+  total = all;
+  return before + __popc(b & lanes_below(lane));
 }
 
-// Each (component, body) task sums that body's pair updates src [comps][2P]
-// in list order (a side ascending, then b side ascending) and adds the sum
-// to dst [comps][N]: no float atomics, the same order on every run.
-__device__ __forceinline__ void body_sums(const int* off, const int* list, float* dst,
-                                          const float* src, int comps, int n, int p) {
-  for (int task = threadIdx.x; task < comps * n; task += blockDim.x) {
-    int c = task / n, j = task - c * n;
-    const float* u = src + c * 2 * p;
+// Per-body lists of the entries e = 0..2m-1 (e < m: the a side of live pair
+// e, else the b side of live pair e - m), built by one warp: a stable
+// counting sort by body over the live entries only. body_slot [N] is -1 on
+// entry for every body; touched[t] is the t-th body met, list[toff[t] ..
+// toff[t+1]) its entries ascending; erank [2m] is scratch. Returns the
+// number of touched bodies. key(e) gives entry e's body.
+template <class Key>
+__device__ int build_lists(int m, const Key& key, int* body_slot, int* touched, int* toff,
+                           int* list, int* erank) {
+  const int lane = threadIdx.x & 31;
+  int nt = 0;
+  for (int base = 0; base < 2 * m; base += 32) {
+    const int e = base + lane;
+    const bool v = e < 2 * m;
+    const int body = v ? key(e) : -1 - lane;  // a lane past the end matches no one
+    const unsigned peers = __match_any_sync(FULL, body);
+    const int leader = __ffs(peers) - 1;
+    int t = v ? body_slot[body] : -1;  // the body's touched index, -1 if new
+    __syncwarp();
+    const bool fresh = v && lane == leader && t < 0;
+    const unsigned fm = __ballot_sync(FULL, fresh);
+    if (fresh) {
+      t = nt + __popc(fm & lanes_below(lane));
+      body_slot[body] = t;
+      touched[t] = body;
+      toff[t] = 0;
+    }
+    nt += __popc(fm);
+    t = __shfl_sync(FULL, t, leader);
+    __syncwarp();
+    const int rank = v ? toff[t] + __popc(peers & lanes_below(lane)) : 0;
+    __syncwarp();
+    if (v && lane == leader) toff[t] += __popc(peers);
+    if (v) erank[e] = (t << 16) | rank;
+    __syncwarp();
+  }
+  // counts -> offsets (exclusive scan), toff[nt] = 2m
+  int carry = 0;
+  for (int base = 0; base < nt; base += 32) {
+    const int t = base + lane;
+    const int c = t < nt ? toff[t] : 0;
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (t < nt) toff[t] = carry + incl - c;
+    carry += __shfl_sync(FULL, incl, 31);
+  }
+  if (lane == 0) toff[nt] = carry;
+  __syncwarp();
+  for (int e = lane; e < 2 * m; e += 32) {
+    const int w = erank[e];
+    list[toff[w >> 16] + (w & 0xffff)] = e;
+  }
+  __syncwarp();
+  return nt;
+}
+
+// One contact's iteration invariants (the solve pack's quantities) and its
+// pair's (identical on the pair's K lanes).
+struct Contact {
+  V3 n, t1, t2, a_an, a_bn, a_a1, a_b1, a_a2, a_b2, r_a, r_b;
+  float kn, k1, k2, target;
+  float im_a, im_b, relax, fr;
+  int ia, ib, slot;
+  bool cv;
+};
+struct Impulse {
+  float ln, l1, l2;
+};
+
+// The velocity updates of impulses (ln, l1, l2) on one contact.
+__device__ __forceinline__ void impulse_updates(const Contact& q, float ln, float l1, float l2,
+                                                float ua[6], float ub[6]) {
+  V3 imp = q.n * ln + q.t1 * l1 + q.t2 * l2;
+  V3 dw_a = q.a_an * ln + q.a_a1 * l1 + q.a_a2 * l2;
+  V3 dw_b = q.a_bn * ln + q.a_b1 * l1 + q.a_b2 * l2;
+  V3 la = imp * q.im_a, lb = imp * q.im_b;
+  ua[0] = la.x; ua[1] = la.y; ua[2] = la.z; ua[3] = dw_a.x; ua[4] = dw_a.y; ua[5] = dw_a.z;
+  ub[0] = lb.x; ub[1] = lb.y; ub[2] = lb.z; ub[3] = dw_b.x; ub[4] = dw_b.y; ub[5] = dw_b.z;
+}
+
+// One relaxed-Jacobi step of one contact against velocities vw [6][N]:
+// updates its impulses and gives its velocity updates.
+__device__ __forceinline__ void contact_step(const Contact& q, Impulse& l, const float* vw, int n,
+                                             float ua[6], float ub[6]) {
+  const V3 va = {vw[0 * n + q.ia], vw[1 * n + q.ia], vw[2 * n + q.ia]};
+  const V3 wa = {vw[3 * n + q.ia], vw[4 * n + q.ia], vw[5 * n + q.ia]};
+  const V3 vb = {vw[0 * n + q.ib], vw[1 * n + q.ib], vw[2 * n + q.ib]};
+  const V3 wb = {vw[3 * n + q.ib], vw[4 * n + q.ib], vw[5 * n + q.ib]};
+  V3 v = (va + cross(wa, q.r_a)) - (vb + cross(wb, q.r_b));
+  float d_ln = (q.target - dot(v, q.n)) / q.kn * q.relax;
+  float ln_new = fmaxf(l.ln + d_ln, 0.f);
+  d_ln = q.cv ? ln_new - l.ln : 0.f;
+  ln_new = l.ln + d_ln;
+  float max_f = q.fr * ln_new;
+  float d_l1 = -dot(v, q.t1) / q.k1 * q.relax;
+  float d_l2 = -dot(v, q.t2) / q.k2 * q.relax;
+  float l1_new = clip(l.l1 + d_l1, -max_f, max_f);
+  float l2_new = clip(l.l2 + d_l2, -max_f, max_f);
+  d_l1 = q.cv ? l1_new - l.l1 : 0.f;
+  d_l2 = q.cv ? l2_new - l.l2 : 0.f;
+  l.ln = ln_new;
+  l.l1 = l.l1 + d_l1;
+  l.l2 = l.l2 + d_l2;
+  impulse_updates(q, d_ln, d_l1, d_l2, ua, ub);
+}
+
+// What the sweeps of one env work on, in shared memory unless said.
+struct Sweep {
+  float* vw;          // [comps][N] velocities (then, in the middle, counts)
+  int n;
+  float* upd;         // [comps][2m] pair-side updates
+  const int* touched; // [nt] bodies with a task
+  const int* toff;    // [nt + 1]
+  const int* list;    // [2m] entries per touched body
+  int nt;
+  float* lam;         // the env's lam output [3K][np] (global)
+  int np;
+  int m, nthr, nwarps, rounds, tid;
+
+  __device__ int contact(int r) const { return tid + r * nthr; }
+  // warp-uniform: does this warp hold a contact in round r?
+  __device__ bool round_live(int r) const { return (tid & ~31) + r * nthr < 4 * m; }
+  __device__ void sync() const { live_sync(nwarps); }
+  // the impulses of contact k of the pair at slot p in the lam output
+  __device__ Impulse lam_get(int p, int k) const {
+    return {lam[k * np + p], lam[(K + k) * np + p], lam[(2 * K + k) * np + p]};
+  }
+  __device__ void lam_put(int p, int k, Impulse l) const {
+    lam[k * np + p] = l.ln;
+    lam[(K + k) * np + p] = l.l1;
+    lam[(2 * K + k) * np + p] = l.l2;
+  }
+};
+
+// Pair sums of the 4 lanes' updates in k order, written as the pair's
+// entries of upd (a side +, b side -). Every lane of the warp calls it;
+// lanes past the env's contacts pass zeros (a whole pair is on or off).
+// Lane k ends with 3 of the 12 sums: side k & 1, components 3 (k >> 1) +
+// 0..2, after two exchanges (partner k ^ 1, then k ^ 2).
+__device__ __forceinline__ void emit_pair(const float ua[6], const float ub[6], int c,
+                                          const Sweep& sw) {
+  const int k = c & 3;
+  const bool odd = k & 1, upper = k >= 2;
+  // exchange 1: even lanes keep the a side, odd lanes the b side
+  float lo[6], hi[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const float mine = odd ? ub[j] : ua[j];
+    const float other = __shfl_xor_sync(FULL, odd ? ua[j] : ub[j], 1);
+    lo[j] = odd ? other : mine;  // contact k & ~1
+    hi[j] = odd ? mine : other;  // contact k | 1
+  }
+  // lanes 0, 1 sum contacts 0 and 1; lanes 2, 3 hold contacts 2 and 3
+  float s01[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) s01[j] = lo[j] + hi[j];
+  // exchange 2: lower lanes keep components 0..2, upper lanes 3..5
+  float out[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float a = __shfl_xor_sync(FULL, upper ? lo[j] : s01[3 + j], 2);  // lower: x2; upper: s01
+    const float b = __shfl_xor_sync(FULL, hi[j], 2);                      // lower: x3
+    out[j] = upper ? (a + lo[3 + j]) + hi[3 + j] : (s01[j] + a) + b;
+  }
+  if (c < 4 * sw.m) {
+    const int i = c >> 2;
+    const int entry = odd ? sw.m + i : i;
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      sw.upd[(3 * (k >> 1) + j) * 2 * sw.m + entry] = odd ? -out[j] : out[j];
+  }
+}
+
+// Each (component, touched body) task sums that body's entries of upd in
+// list order and adds the sum to vw [comps][N].
+__device__ __forceinline__ void body_sums(const Sweep& sw, int comps) {
+  for (int task = sw.tid; task < comps * sw.nt; task += sw.nthr) {
+    const int c = task / sw.nt, t = task - c * sw.nt;
+    const float* u = sw.upd + c * 2 * sw.m;
     float acc = 0.f;
-    for (int i = off[j]; i < off[j + 1]; ++i) acc += u[list[i]];
-    dst[c * n + j] += acc;
+    for (int i = sw.toff[t]; i < sw.toff[t + 1]; ++i) acc += u[sw.list[i]];
+    sw.vw[c * sw.n + sw.touched[t]] += acc;
+  }
+}
+
+// `iterations` sweeps. q/l: this thread's round-0 contact, in registers
+// (every live warp holds one); load(c) gives the invariants of contact c
+// of a later round.
+template <class Load>
+__device__ void jacobi_sweeps(const Contact& q, Impulse& l, const Load& load, const Sweep& sw,
+                              int iterations) {
+  for (int it = 0; it < iterations; ++it) {
+    {
+      float ua[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, ub[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (sw.tid < 4 * sw.m) contact_step(q, l, sw.vw, sw.n, ua, ub);
+      emit_pair(ua, ub, sw.tid, sw);
+    }
+    for (int r = 1; r < sw.rounds; ++r) {
+      if (!sw.round_live(r)) continue;
+      float ua[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, ub[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      const int c = sw.contact(r);
+      if (c < 4 * sw.m) {
+        const Contact o = load(c);
+        Impulse lo = sw.lam_get(o.slot, c & 3);
+        contact_step(o, lo, sw.vw, sw.n, ua, ub);
+        sw.lam_put(o.slot, c & 3, lo);
+      }
+      emit_pair(ua, ub, c, sw);
+    }
+    sw.sync();
+    body_sums(sw, 6);
+    sw.sync();
   }
 }
 

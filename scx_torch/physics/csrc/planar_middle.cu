@@ -14,25 +14,37 @@
 // operation, and the file is built with --fmad=false so that no
 // multiply-add is fused where the reference rounds twice.
 //
-// What bounds it on this card: the work is long, branchy, per-pair scalar
-// code (SAT candidates with selects) and a chain of dependent sweeps, on
-// a few KB of data per env (the TPU version measured op-count bound with
-// a tiny byte count). So it is bound by latency and occupancy, not by
-// bytes or FLOP/s. Design: one CTA per env, one thread per pair slot
-// (P threads); the env's body rows, velocities and contact counts sit in
-// shared memory; the ~156 per-pair iteration invariants are kept in
-// shared memory too (156 x 128 x 4 B = 80 KB at P=128) so the sweeps do
-// not spill registers. Body sums are deterministic, with no float
-// atomics: each pair writes its update to shared memory, and then one
-// thread per (component, body) sums that body's pairs in ascending pair
-// order, a side first, then b side, from an incidence list built once per
-// launch. Padded pair slots (pvf = 0) are not in any list, so they add
-// nothing to any body.
+// What bounds it on this card: long, branchy, per-pair scalar code (the
+// SAT candidates with selects) and a chain of dependent sweeps, on a few KB
+// of data per env (the TPU version measured op-count bound with a tiny
+// byte count). So it is bound by latency and by how many envs an SM holds
+// at once, not by bytes or FLOP/s. Design: one CTA of MID_THREADS (4
+// warps) per env, whatever P, so that several envs are resident per SM,
+// and work only where there is work:
+//   - the pair-valid slots are compacted in ascending order (warp ballots,
+//     block_rank) and only they run the SAT, one thread each; a slot that
+//     is not pair-valid writes the outputs of a slot with no contact;
+//   - the SAT threads whose pair has a valid contact (a live pair) are
+//     compacted again and stage their top-4 (point, normal, depth, ids and
+//     validity) and fr/re in a small pair-major area of shared memory;
+//   - warps past the live contacts exit; contact k of live pair i runs on
+//     lane 4 i + k and keeps its invariants and impulses in registers
+//     (the first round of the CTA's live threads; a later round recomputes
+//     its invariants from the staged result each sweep, which gives the
+//     same bits), and the sweeps are planar_device.cuh's jacobi_sweeps;
+//   - each sweep synchronises only the live warps (a named barrier);
+//   - the per-body lists are built by one warp with a counting sort over
+//     the live pair sides (build_lists), not by scanning all slots.
+// The body rows are read through the read-only path. Shared memory holds
+// velocities and counts [7][N], the staging, the update buffer (laid over
+// the staging of the register round once it has been read, where it fits:
+// P <= 80) and the lists: 31,256 B at N=64, P=128, so the 128-register
+// bound, not shared memory, sets 4 resident CTAs (16 warps) per SM. The
+// overflow rounds keep their impulses in the lam output.
 //
-// Limits: P <= the kernel's max threads per block (1024 unless the
-// register count lowers it) and smem_bytes(N, P) <= the card's opt-in
-// shared memory per block (227 KB on an H100): P=128 takes N up to
-// about 1,250 bodies. The wrapper checks both before a launch.
+// Limits: P and N only through middle_smem_bytes(N, P) <= the card's opt-in
+// shared memory per block (227 KB on an H100): P=128 takes N up to 6,351,
+// N=64 takes P up to 1,010. The wrapper checks before a launch.
 
 #include "planar_device.cuh"
 
@@ -40,102 +52,70 @@ namespace {
 
 constexpr int ROWS = 21;       // packed body rows
 constexpr int PREV_ROWS = 16;  // cand+1, lam_n, lam_1, lam_2 (K each)
-// per-contact iteration invariants: the solve pack's quantities up to
-// Q_CVALID (11 vectors + kn, k1, k2, target, cvalid)
-constexpr int INV_PER_K = Q_CVALID + 1;
-// + per pair: im_a, im_b, relax, fr
-constexpr int INV_ROWS = INV_PER_K * K + SOLVE_PAIR_ROWS;
-
+constexpr int MID_THREADS = 128;
+constexpr int MID_MIN_CTAS = 4;  // resident per SM: at most 128 registers a thread
+// One live pair's staged SAT result: STG_WORDS words (odd: fewer bank
+// conflicts between the pairs of a warp). ST_META holds cid k in bits
+// 4k..4k+3 and the contact's validity in bit 16 + k.
+enum Stg {
+  ST_POINT = 0, ST_NORMAL = 12, ST_DEPTH = 24, ST_META = 28, ST_FR = 29, ST_RE = 30,
+  ST_SLOT = 31, ST_IA = 32, ST_IB = 33, STG_WORDS = 35
+};
+constexpr int UPD_COMPS = 7;   // velocities and the contact count
 
 // shared-memory layout, in 4-byte words
-struct Smem {
-  float *rows, *vw, *cnt, *upd, *inv;
-  int *list, *off;
+struct MidLayout {
+  int vw, body_slot, stg, upd, touched, toff, list, pvl, scratch, words;
 };
 
-__device__ __forceinline__ Smem carve(float* base, int n, int p) {
-  Smem s;
-  s.rows = base;                        // [21][N]
-  s.vw = s.rows + ROWS * n;             // [6][N]
-  s.cnt = s.vw + 6 * n;                 // [N]
-  s.upd = s.cnt + n;                    // [6][2P]
-  s.inv = s.upd + 12 * p;               // [INV_ROWS][P]
-  s.list = (int*)(s.inv + INV_ROWS * p);  // [2P] incidence list
-  s.off = s.list + 2 * p;               // [N+1]
-  return s;
+__host__ __device__ inline MidLayout middle_layout(int n, int p) {
+  MidLayout l;
+  int o = 0;
+  l.vw = o;        o += UPD_COMPS * n;  // [7][N]: velocities, then counts
+  l.body_slot = o; o += n;              // [N]
+  l.stg = o;       o += STG_WORDS * p;  // [P][STG_WORDS]
+  // [7][2P]: over the staging of the register round's pairs where it fits
+  const int reg_pairs = p < MID_THREADS / 4 ? p : MID_THREADS / 4;
+  if (2 * UPD_COMPS * p <= STG_WORDS * reg_pairs) {
+    l.upd = l.stg;
+  } else {
+    l.upd = o; o += 2 * UPD_COMPS * p;
+  }
+  l.touched = o;   o += 2 * p;
+  l.toff = o;      o += 2 * p + 1;
+  l.list = o;      o += 2 * p;
+  l.pvl = o;       o += 2 * p;          // pair-valid slots, then the lists' scratch
+  l.scratch = o;   o += MID_THREADS / 32 + 1;
+  l.words = o;
+  return l;
 }
 
-template <bool BOX_ONLY>
-__global__ void planar_middle_kernel(
-    const float* __restrict__ rows, const int* __restrict__ ia_g, const int* __restrict__ ib_g,
-    const float* __restrict__ pvf, const float* __restrict__ prev, const float* __restrict__ vw0,
-    float* __restrict__ vwc, float* __restrict__ lam, float* __restrict__ cand_out,
-    float* __restrict__ valid_out, float* __restrict__ trig_out, int n, int np, int iterations,
-    float bias_scale, float slop, float rest_thr, float relaxation, float warm_start) {
-  extern __shared__ float smem_words[];
-  const Smem s = carve(smem_words, n, np);
-  const int e = blockIdx.x;
-  const int p = threadIdx.x;
+struct MidParams {
+  float bias_scale, slop, rest_thr, relaxation, warm_start;
+};
 
-  for (int i = p; i < ROWS * n; i += blockDim.x) s.rows[i] = rows[(size_t)e * ROWS * n + i];
-  for (int i = p; i < 6 * n; i += blockDim.x) s.vw[i] = vw0[(size_t)e * 6 * n + i];
-  const int ia = ia_g[(size_t)e * np + p];
-  const int ib = ib_g[(size_t)e * np + p];
-  const bool pair_valid = pvf[(size_t)e * np + p] > 0.5f;
-  // per-body incidence lists of the valid pairs: pair slots of the a side,
-  // then of the b side (+P), each ascending. The upd area holds the pairs'
-  // bodies (-1 for a padded slot) until the lists are built.
-  int* ia_s = (int*)s.upd;
-  int* ib_s = ia_s + np;
-  ia_s[p] = pair_valid ? ia : -1;
-  ib_s[p] = pair_valid ? ib : -1;
-  __syncthreads();
-  build_incidence(ia_s, ib_s, s.off, s.list, n, np);
-
-  // ---- phase 1: narrowphase, warm re-association, solver setup ----------
-  float ga[ROWS], gb[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    ga[r] = s.rows[r * n + ia];
-    gb[r] = s.rows[r * n + ib];
-  }
-  Cand cands[NCAND];
-  pair_candidates<BOX_ONLY>(ga, gb, cands);
-
-  V3 point[K], nrm[K];
-  float depth[K];
-  bool vraw[K];
-  int cid[K];
-  select_top_k(cands, pair_valid, point, nrm, depth, vraw, cid);
-  const float fr = ga[11] * gb[11];
-  const float re = ga[12] * gb[12];
-  const bool trig = ga[13] > 0.f || gb[13] > 0.f;
-
-  // warm-start slot re-association against the key-matched previous record
-  const float* pv = prev + (size_t)e * PREV_ROWS * np + p;
-  float ln0g[K], l10g[K], l20g[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) ln0g[k] = l10g[k] = l20g[k] = 0.f;
-#pragma unroll
-  for (int t = 0; t < K; ++t) {
-    int pc = (int)pv[t * np] - 1;
-    float pln = pv[(K + t) * np], pl1 = pv[(2 * K + t) * np], pl2 = pv[(3 * K + t) * np];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      float mf = (cid[k] == pc && pc >= 0) ? 1.f : 0.f;
-      ln0g[k] = ln0g[k] + mf * pln;
-      l10g[k] = l10g[k] + mf * pl1;
-      l20g[k] = l20g[k] + mf * pl2;
-    }
-  }
-
+// The iteration invariants of contact k of a live pair from its staged SAT
+// result st, the env's body rows and its velocities before the warm start
+// (relax is set once the counts are known).
+__device__ Contact middle_contact(const float* st, int k, const float* rows_e,
+                                  const float* vw0_e, int n, const MidParams& mp) {
+  const int* sti = (const int*)st;
+  Contact q;
+  q.ia = sti[ST_IA];
+  q.ib = sti[ST_IB];
+  q.slot = sti[ST_SLOT];
+  const int ia = q.ia, ib = q.ib;
+  auto ra = [&](int r) { return ldg(rows_e + r * n + ia); };
+  auto rb = [&](int r) { return ldg(rows_e + r * n + ib); };
   // per-side mass properties: world inverse inertia R diag(ii) R^T
-  const float im_a = ga[14], im_b = gb[14];
-  const V3 pos_a = {ga[15], ga[16], ga[17]}, pos_b = {gb[15], gb[16], gb[17]};
+  q.im_a = ra(14);
+  q.im_b = rb(14);
+  const V3 pos_a = {ra(15), ra(16), ra(17)}, pos_b = {rb(15), rb(16), rb(17)};
   M3 iw_a, iw_b;
   {
-    M3 ra = q_to_mat(Q4{ga[3], ga[4], ga[5], ga[6]});
-    M3 rb = q_to_mat(Q4{gb[3], gb[4], gb[5], gb[6]});
+    const M3 rma = q_to_mat(Q4{ra(3), ra(4), ra(5), ra(6)});
+    const M3 rmb = q_to_mat(Q4{rb(3), rb(4), rb(5), rb(6)});
+    const float iia[3] = {ra(18), ra(19), ra(20)}, iib[3] = {rb(18), rb(19), rb(20)};
 #pragma unroll
     for (int i = 0; i < 3; ++i)
 #pragma unroll
@@ -143,175 +123,294 @@ __global__ void planar_middle_kernel(
         float sa = 0.f, sb = 0.f;
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          sa = sa + ra.m[i][c] * ga[18 + c] * ra.m[j][c];
-          sb = sb + rb.m[i][c] * gb[18 + c] * rb.m[j][c];
+          sa = sa + rma.m[i][c] * iia[c] * rma.m[j][c];
+          sb = sb + rmb.m[i][c] * iib[c] * rmb.m[j][c];
         }
         iw_a.m[i][j] = sa;
         iw_b.m[i][j] = sb;
       }
   }
-  const V3 va0 = {s.vw[0 * n + ia], s.vw[1 * n + ia], s.vw[2 * n + ia]};
-  const V3 wa0 = {s.vw[3 * n + ia], s.vw[4 * n + ia], s.vw[5 * n + ia]};
-  const V3 vb0 = {s.vw[0 * n + ib], s.vw[1 * n + ib], s.vw[2 * n + ib]};
-  const V3 wb0 = {s.vw[3 * n + ib], s.vw[4 * n + ib], s.vw[5 * n + ib]};
+  auto vel = [&](int c, int j) { return ldg(vw0_e + c * n + j); };
+  const V3 va0 = {vel(0, ia), vel(1, ia), vel(2, ia)}, wa0 = {vel(3, ia), vel(4, ia), vel(5, ia)};
+  const V3 vb0 = {vel(0, ib), vel(1, ib), vel(2, ib)}, wb0 = {vel(3, ib), vel(4, ib), vel(5, ib)};
 
-  // invariants go to shared memory: row (q * K + k) of INV_ROWS, column p
-  float* inv = s.inv + p;
-  auto put = [&](int q, int k, float x) { inv[(q * K + k) * np] = x; };
-  auto put3 = [&](int q, int k, V3 v) { put(q, k, v.x); put(q + 1, k, v.y); put(q + 2, k, v.z); };
-  const int pair_row = INV_PER_K * K;  // + 0 im_a, 1 im_b, 2 relax, 3 fr
+  const V3 point = {st[ST_POINT + 3 * k], st[ST_POINT + 3 * k + 1], st[ST_POINT + 3 * k + 2]};
+  const V3 n_ = {st[ST_NORMAL + 3 * k], st[ST_NORMAL + 3 * k + 1], st[ST_NORMAL + 3 * k + 2]};
+  const float depth = st[ST_DEPTH + k];
+  q.cv = (sti[ST_META] >> (16 + k)) & 1;
+  q.fr = st[ST_FR];
+  const float re = st[ST_RE];
+  const bool use_x = fabsf(n_.x) < F(0.9);
+  const V3 t1 = vnormalize(cross(n_, V3{use_x ? 1.f : 0.f, use_x ? 0.f : 1.f, 0.f}));
+  const V3 t2 = cross(n_, t1);
+  const V3 r_a = point - pos_a, r_b = point - pos_b;
+  q.n = n_;
+  q.t1 = t1;
+  q.t2 = t2;
+  q.r_a = r_a;
+  q.r_b = r_b;
+  q.a_an = mvec(iw_a, cross(r_a, n_));
+  q.a_bn = mvec(iw_b, cross(r_b, n_));
+  q.a_a1 = mvec(iw_a, cross(r_a, t1));
+  q.a_b1 = mvec(iw_b, cross(r_b, t1));
+  q.a_a2 = mvec(iw_a, cross(r_a, t2));
+  q.a_b2 = mvec(iw_b, cross(r_b, t2));
+  const float im = q.im_a + q.im_b;
+  q.kn = fmaxf(im + dot(n_, cross(q.a_an, r_a) + cross(q.a_bn, r_b)), F(1e-9));
+  q.k1 = fmaxf(im + dot(t1, cross(q.a_a1, r_a) + cross(q.a_b1, r_b)), F(1e-9));
+  q.k2 = fmaxf(im + dot(t2, cross(q.a_a2, r_a) + cross(q.a_b2, r_b)), F(1e-9));
+  const V3 v0 = (va0 + cross(wa0, r_a)) - (vb0 + cross(wb0, r_b));
+  const float vn0 = dot(v0, n_);
+  const float bounce = -re * (vn0 < -mp.rest_thr ? vn0 : 0.f);
+  const float bias = mp.bias_scale * fmaxf(depth - mp.slop, 0.f);
+  q.target = fmaxf(bounce, bias);
+  q.relax = 0.f;
+  return q;
+}
 
-  bool cvalid[K];
-  float wsum = 0.f;
-  bool pvalid = false;
+// The warm-start impulses of contact k: the key-matched previous record's
+// impulses of the same candidate id (prev_e: the env's record), clamped.
+__device__ Impulse warm_impulse(const Contact& q, const float* st, int k, const float* prev_e,
+                                int np, float warm_start) {
+  const int cid = (((const int*)st)[ST_META] >> (4 * k)) & 15;
+  const float* pv = prev_e + q.slot;
+  float ln0 = 0.f, l10 = 0.f, l20 = 0.f;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    cvalid[k] = vraw[k] && !trig;
-    pvalid = pvalid || cvalid[k];
+  for (int t = 0; t < K; ++t) {
+    const int pc = (int)ldg(pv + t * np) - 1;
+    const float mf = (cid == pc && pc >= 0) ? 1.f : 0.f;
+    ln0 = ln0 + mf * ldg(pv + (K + t) * np);
+    l10 = l10 + mf * ldg(pv + (2 * K + t) * np);
+    l20 = l20 + mf * ldg(pv + (3 * K + t) * np);
   }
-  float ln[K], l1[K], l2[K];
-  float lin_a[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, lin_b[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  Impulse l;
+  l.ln = q.cv ? fmaxf(ln0 * warm_start, 0.f) : 0.f;
+  const float max_f0 = q.fr * l.ln;
+  l.l1 = clip(q.cv ? l10 * warm_start : 0.f, -max_f0, max_f0);
+  l.l2 = clip(q.cv ? l20 * warm_start : 0.f, -max_f0, max_f0);
+  return l;
+}
+
+// Jacobi relaxation 1 / max(touch_a, touch_b) from the contact counts.
+__device__ __forceinline__ float pair_relax(const Contact& q, const float* cnt, float relaxation) {
+  const float touch_a = q.im_a > 0.f ? cnt[q.ia] : 1.f;
+  const float touch_b = q.im_b > 0.f ? cnt[q.ib] : 1.f;
+  return relaxation / fmaxf(fmaxf(touch_a, touch_b), 1.f);
+}
+
+template <bool BOX_ONLY>
+__global__ void __launch_bounds__(MID_THREADS, MID_MIN_CTAS) planar_middle_kernel(
+    const float* __restrict__ rows, const int* __restrict__ ia_g, const int* __restrict__ ib_g,
+    const float* __restrict__ pvf, const float* __restrict__ prev, const float* __restrict__ vw0,
+    float* __restrict__ vwc, float* __restrict__ lam, float* __restrict__ cand_out,
+    float* __restrict__ valid_out, float* __restrict__ trig_out, int n, int np, int iterations,
+    float bias_scale, float slop, float rest_thr, float relaxation, float warm_start) {
+  extern __shared__ float smem_words[];
+  const MidLayout L = middle_layout(n, np);
+  float* vw = smem_words + L.vw;
+  int* body_slot = (int*)smem_words + L.body_slot;
+  float* stg = smem_words + L.stg;
+  int* pvl = (int*)smem_words + L.pvl;
+  int* scratch = (int*)smem_words + L.scratch;
+  const MidParams mp = {bias_scale, slop, rest_thr, relaxation, warm_start};
+  const int e = blockIdx.x, tid = threadIdx.x;
+  const float* rows_e = rows + (size_t)e * ROWS * n;
+  const float* vw0_e = vw0 + (size_t)e * 6 * n;
+  const float* prev_e = prev + (size_t)e * PREV_ROWS * np;
+  float* vwc_e = vwc + (size_t)e * UPD_COMPS * n;
+  float* lam_e = lam + (size_t)e * 3 * K * np;
+  const size_t kp = (size_t)e * K * np;
+
+  for (int i = tid; i < UPD_COMPS * n; i += MID_THREADS) vw[i] = i < 6 * n ? vw0_e[i] : 0.f;
+  for (int j = tid; j < n; j += MID_THREADS) body_slot[j] = -1;
+
+  // ---- pair-valid slots, ascending; the others write the outputs of a slot
+  // with no contact (the first-max walk over -inf scores gives ids 0)
+  int n_pairs = 0;
+  for (int base = 0; base < np; base += MID_THREADS) {
+    const int p = base + tid;
+    const bool pv = p < np && pvf[(size_t)e * np + p] > 0.5f;
+    int total;
+    const int r = block_rank(pv, scratch, total);
+    if (pv) {
+      pvl[n_pairs + r] = p;
+    } else if (p < np) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    V3 n_ = nrm[k];
-    bool use_x = fabsf(n_.x) < F(0.9);
-    V3 t1 = vnormalize(cross(n_, V3{use_x ? 1.f : 0.f, use_x ? 0.f : 1.f, 0.f}));
-    V3 t2 = cross(n_, t1);
-    V3 r_a = point[k] - pos_a, r_b = point[k] - pos_b;
-    V3 a_an = mvec(iw_a, cross(r_a, n_)), a_bn = mvec(iw_b, cross(r_b, n_));
-    V3 a_a1 = mvec(iw_a, cross(r_a, t1)), a_b1 = mvec(iw_b, cross(r_b, t1));
-    V3 a_a2 = mvec(iw_a, cross(r_a, t2)), a_b2 = mvec(iw_b, cross(r_b, t2));
-    float kn = fmaxf(im_a + im_b + dot(n_, cross(a_an, r_a) + cross(a_bn, r_b)), F(1e-9));
-    float k1 = fmaxf(im_a + im_b + dot(t1, cross(a_a1, r_a) + cross(a_b1, r_b)), F(1e-9));
-    float k2 = fmaxf(im_a + im_b + dot(t2, cross(a_a2, r_a) + cross(a_b2, r_b)), F(1e-9));
-    V3 v0 = (va0 + cross(wa0, r_a)) - (vb0 + cross(wb0, r_b));
-    float vn0 = dot(v0, n_);
-    float bounce = -re * (vn0 < -rest_thr ? vn0 : 0.f);
-    float bias = bias_scale * fmaxf(depth[k] - slop, 0.f);
-    float target = fmaxf(bounce, bias);
-    // warm-start clamp; its pre-application is summed per pair below
-    ln[k] = cvalid[k] ? fmaxf(ln0g[k] * warm_start, 0.f) : 0.f;
-    float max_f0 = fr * ln[k];
-    l1[k] = clip(cvalid[k] ? l10g[k] * warm_start : 0.f, -max_f0, max_f0);
-    l2[k] = clip(cvalid[k] ? l20g[k] * warm_start : 0.f, -max_f0, max_f0);
-    V3 imp = n_ * ln[k] + t1 * l1[k] + t2 * l2[k];
-    V3 dw_a = a_an * ln[k] + a_a1 * l1[k] + a_a2 * l2[k];
-    V3 dw_b = a_bn * ln[k] + a_b1 * l1[k] + a_b2 * l2[k];
-    V3 la = imp * im_a, lb = imp * im_b;
-    const float ua[6] = {la.x, la.y, la.z, dw_a.x, dw_a.y, dw_a.z};
-    const float ub[6] = {lb.x, lb.y, lb.z, dw_b.x, dw_b.y, dw_b.z};
-#pragma unroll
-    for (int c = 0; c < 6; ++c) {
-      lin_a[c] = k == 0 ? ua[c] : lin_a[c] + ua[c];
-      lin_b[c] = k == 0 ? ub[c] : lin_b[c] + ub[c];
+      for (int k = 0; k < K; ++k) {
+        cand_out[kp + k * np + p] = 0.f;
+        valid_out[kp + k * np + p] = 0.f;
+        trig_out[kp + k * np + p] = 0.f;
+      }
+      for (int r3 = 0; r3 < 3 * K; ++r3) lam_e[r3 * np + p] = 0.f;
     }
-    wsum = k == 0 ? (cvalid[k] ? 1.f : 0.f) : wsum + (cvalid[k] ? 1.f : 0.f);
-    put3(Q_N, k, n_); put3(Q_T1, k, t1); put3(Q_T2, k, t2);
-    put3(Q_AAN, k, a_an); put3(Q_ABN, k, a_bn); put3(Q_AA1, k, a_a1);
-    put3(Q_AB1, k, a_b1); put3(Q_AA2, k, a_a2); put3(Q_AB2, k, a_b2);
-    put3(Q_RA, k, r_a); put3(Q_RB, k, r_b);
-    put(Q_KN, k, kn); put(Q_K1, k, k1); put(Q_K2, k, k2);
-    put(Q_TARGET, k, target); put(Q_CVALID, k, cvalid[k] ? 1.f : 0.f);
+    n_pairs += total;
   }
+  __syncthreads();  // the pair-valid list is written
 
-  // contact counts per body -> Jacobi relaxation
-  s.upd[p] = wsum * (pvalid ? 1.f : 0.f);
-  s.upd[np + p] = s.upd[p];
-  __syncthreads();
-  for (int j = p; j < n; j += blockDim.x) s.cnt[j] = 0.f;
-  __syncthreads();
-  body_sums(s.off, s.list, s.cnt, s.upd, 1, n, np);
-  __syncthreads();
-  {
-    float touch_a = im_a > 0.f ? s.cnt[ia] : 1.f;
-    float touch_b = im_b > 0.f ? s.cnt[ib] : 1.f;
-    inv[(pair_row + 0) * np] = im_a;
-    inv[(pair_row + 1) * np] = im_b;
-    inv[(pair_row + 2) * np] = relaxation / fmaxf(fmaxf(touch_a, touch_b), 1.f);
-    inv[(pair_row + 3) * np] = fr;
-  }
-  __syncthreads();  // every thread has read its counts before upd is reused
-
-  // warm-start pre-application
+  // ---- SAT, one thread per pair-valid slot; live pairs staged in order --
+  int m = 0;
+  for (int base = 0; base < n_pairs; base += MID_THREADS) {
+    const int s = base + tid;
+    const bool on = s < n_pairs;
+    int p = 0, ia = 0, ib = 0;
+    V3 point[K], nrm[K];
+    float depth[K], fr = 0.f, re = 0.f;
+    bool vraw[K], trig = false, live = false;
+    int cid[K];
+    if (on) {
+      p = pvl[s];
+      ia = ia_g[(size_t)e * np + p];
+      ib = ib_g[(size_t)e * np + p];
+      float ga[SAT_ROWS], gb[SAT_ROWS];
 #pragma unroll
-  for (int c = 0; c < 6; ++c) {
-    s.upd[c * 2 * np + p] = lin_a[c];
-    s.upd[c * 2 * np + np + p] = -lin_b[c];
-  }
-  __syncthreads();
-  body_sums(s.off, s.list, s.vw, s.upd, 6, n, np);
-  __syncthreads();
-
-  // ---- relaxed-Jacobi sweeps --------------------------------------------
-  const float relax = inv[(pair_row + 2) * np];
-  auto get = [&](int q, int k) { return inv[(q * K + k) * np]; };
-  auto get3 = [&](int q, int k) { return V3{get(q, k), get(q + 1, k), get(q + 2, k)}; };
-  for (int it = 0; it < iterations; ++it) {
-    const V3 va = {s.vw[0 * n + ia], s.vw[1 * n + ia], s.vw[2 * n + ia]};
-    const V3 wa = {s.vw[3 * n + ia], s.vw[4 * n + ia], s.vw[5 * n + ia]};
-    const V3 vb = {s.vw[0 * n + ib], s.vw[1 * n + ib], s.vw[2 * n + ib]};
-    const V3 wb = {s.vw[3 * n + ib], s.vw[4 * n + ib], s.vw[5 * n + ib]};
+      for (int r = 0; r < SAT_ROWS; ++r) {
+        ga[r] = ldg(rows_e + r * n + ia);
+        gb[r] = ldg(rows_e + r * n + ib);
+      }
+      Cand cands[NCAND];
+      pair_candidates<BOX_ONLY>(ga, gb, cands);
+      select_top_k(cands, true, point, nrm, depth, vraw, cid);
+      fr = ga[11] * gb[11];
+      re = ga[12] * gb[12];
+      trig = ga[13] > 0.f || gb[13] > 0.f;
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const V3 n_ = get3(Q_N, k), t1 = get3(Q_T1, k), t2 = get3(Q_T2, k);
-      const V3 r_a = get3(Q_RA, k), r_b = get3(Q_RB, k);
-      const bool cv = get(Q_CVALID, k) > 0.5f;
-      V3 v = (va + cross(wa, r_a)) - (vb + cross(wb, r_b));
-      float d_ln = (get(Q_TARGET, k) - dot(v, n_)) / get(Q_KN, k) * relax;
-      float ln_new = fmaxf(ln[k] + d_ln, 0.f);
-      d_ln = cv ? ln_new - ln[k] : 0.f;
-      ln_new = ln[k] + d_ln;
-      float max_f = fr * ln_new;
-      float d_l1 = -dot(v, t1) / get(Q_K1, k) * relax;
-      float d_l2 = -dot(v, t2) / get(Q_K2, k) * relax;
-      float l1_new = clip(l1[k] + d_l1, -max_f, max_f);
-      float l2_new = clip(l2[k] + d_l2, -max_f, max_f);
-      d_l1 = cv ? l1_new - l1[k] : 0.f;
-      d_l2 = cv ? l2_new - l2[k] : 0.f;
-      ln[k] = ln_new;
-      l1[k] = l1[k] + d_l1;
-      l2[k] = l2[k] + d_l2;
-      V3 imp = n_ * d_ln + t1 * d_l1 + t2 * d_l2;
-      V3 dw_a = get3(Q_AAN, k) * d_ln + get3(Q_AA1, k) * d_l1 + get3(Q_AA2, k) * d_l2;
-      V3 dw_b = get3(Q_ABN, k) * d_ln + get3(Q_AB1, k) * d_l1 + get3(Q_AB2, k) * d_l2;
-      V3 la = imp * im_a, lb = imp * im_b;
-      const float ua[6] = {la.x, la.y, la.z, dw_a.x, dw_a.y, dw_a.z};
-      const float ub[6] = {lb.x, lb.y, lb.z, dw_b.x, dw_b.y, dw_b.z};
-#pragma unroll
-      for (int c = 0; c < 6; ++c) {
-        lin_a[c] = k == 0 ? ua[c] : lin_a[c] + ua[c];
-        lin_b[c] = k == 0 ? ub[c] : lin_b[c] + ub[c];
+      for (int k = 0; k < K; ++k) {
+        cand_out[kp + k * np + p] = (float)cid[k];
+        valid_out[kp + k * np + p] = (vraw[k] && !trig) ? 1.f : 0.f;
+        trig_out[kp + k * np + p] = (vraw[k] && trig) ? 1.f : 0.f;
+        live = live || (vraw[k] && !trig);
       }
     }
+    int total;
+    const int i = m + block_rank(live, scratch, total);
+    if (live) {
+      float* st = stg + i * STG_WORDS;
+      int* sti = (int*)st;
+      int meta = 0;
 #pragma unroll
-    for (int c = 0; c < 6; ++c) {
-      s.upd[c * 2 * np + p] = lin_a[c];
-      s.upd[c * 2 * np + np + p] = -lin_b[c];
+      for (int k = 0; k < K; ++k) {
+        st[ST_POINT + 3 * k] = point[k].x;
+        st[ST_POINT + 3 * k + 1] = point[k].y;
+        st[ST_POINT + 3 * k + 2] = point[k].z;
+        st[ST_NORMAL + 3 * k] = nrm[k].x;
+        st[ST_NORMAL + 3 * k + 1] = nrm[k].y;
+        st[ST_NORMAL + 3 * k + 2] = nrm[k].z;
+        st[ST_DEPTH + k] = depth[k];
+        meta |= cid[k] << (4 * k);
+        meta |= (vraw[k] && !trig) ? 1 << (16 + k) : 0;
+      }
+      sti[ST_META] = meta;
+      st[ST_FR] = fr;
+      st[ST_RE] = re;
+      sti[ST_SLOT] = p;
+      sti[ST_IA] = ia;
+      sti[ST_IB] = ib;
+    } else if (on) {  // a pair with no valid contact keeps zero impulses
+      for (int r3 = 0; r3 < 3 * K; ++r3) lam_e[r3 * np + p] = 0.f;
     }
-    __syncthreads();
-    body_sums(s.off, s.list, s.vw, s.upd, 6, n, np);
-    __syncthreads();
+    m += total;
+  }
+  __syncthreads();  // the staging is written
+
+  if (m == 0) {  // nothing to solve: the sums would all have been +0
+    for (int i = tid; i < UPD_COMPS * n; i += MID_THREADS)
+      vwc_e[i] = i < 6 * n ? vw[i] + 0.f : vw[i];
+    return;
   }
 
-  // ---- outputs ------------------------------------------------------------
-  for (int i = p; i < 6 * n; i += blockDim.x) vwc[(size_t)e * 7 * n + i] = s.vw[i];
-  for (int j = p; j < n; j += blockDim.x) vwc[(size_t)e * 7 * n + 6 * n + j] = s.cnt[j];
-  const size_t kp = (size_t)e * K * np + p;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    lam[(size_t)e * 3 * K * np + (0 * K + k) * np + p] = ln[k];
-    lam[(size_t)e * 3 * K * np + (1 * K + k) * np + p] = l1[k];
-    lam[(size_t)e * 3 * K * np + (2 * K + k) * np + p] = l2[k];
-    cand_out[kp + k * np] = (float)cid[k];
-    valid_out[kp + k * np] = cvalid[k] ? 1.f : 0.f;
-    trig_out[kp + k * np] = (vraw[k] && trig) ? 1.f : 0.f;
+  // ---- the live warps: lists, setup, counts, warm start, sweeps ----------
+  const int nwarps = min((4 * m + 31) / 32, MID_THREADS / 32);
+  if (tid >= 32 * nwarps) return;
+  Sweep sw;
+  sw.vw = vw;
+  sw.n = n;
+  sw.upd = smem_words + L.upd;
+  sw.touched = (int*)smem_words + L.touched;
+  sw.toff = (int*)smem_words + L.toff;
+  sw.list = (int*)smem_words + L.list;
+  sw.lam = lam_e;
+  sw.np = np;
+  sw.m = m;
+  sw.nthr = 32 * nwarps;
+  sw.nwarps = nwarps;
+  sw.rounds = (4 * m + sw.nthr - 1) / sw.nthr;
+  sw.tid = tid;
+  const int* stg_i = (const int*)stg;
+  if (tid < 32) {  // warp 0 sorts the live pair sides by body
+    auto key = [&](int en) {
+      return en < m ? stg_i[en * STG_WORDS + ST_IA] : stg_i[(en - m) * STG_WORDS + ST_IB];
+    };
+    const int nt = build_lists(m, key, body_slot, (int*)sw.touched, (int*)sw.toff,
+                               (int*)sw.list, pvl);
+    if (tid == 0) scratch[0] = nt;
   }
+  auto contact_at = [&](int c) {
+    return middle_contact(stg + (c >> 2) * STG_WORDS, c & 3, rows_e, vw0_e, n, mp);
+  };
+  auto warm_at = [&](const Contact& q, int c) {
+    return warm_impulse(q, stg + (c >> 2) * STG_WORDS, c & 3, prev_e, np, warm_start);
+  };
+  Contact reg = {};  // round 0: contact tid
+  Impulse imp = {};
+  if (tid < 4 * m) {
+    reg = contact_at(tid);
+    imp = warm_at(reg, tid);
+  }
+  for (int r = 1; r < sw.rounds; ++r) {  // overflow: impulses kept in lam
+    const int c = sw.contact(r);
+    if (c < 4 * m) {
+      const Contact q = contact_at(c);
+      sw.lam_put(q.slot, c & 3, warm_at(q, c));
+    }
+  }
+  sw.sync();  // lists built, round 0's staging read: upd may overlay it
+  sw.nt = scratch[0];
+
+  // contact counts per body and the warm-start pre-application, one pass
+  const int lane = tid & 31;
+  auto pre = [&](const Contact& q, const Impulse& l, int c) {
+    float ua[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, ub[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    const bool on = c < 4 * m;
+    if (on) impulse_updates(q, l.ln, l.l1, l.l2, ua, ub);
+    emit_pair(ua, ub, c, sw);
+    const unsigned valid = __ballot_sync(FULL, on && q.cv);
+    if (on && (c & 3) == 0) {
+      const float w = (float)__popc(valid & (0xFu << (lane & 28)));
+      sw.upd[6 * 2 * m + (c >> 2)] = w;
+      sw.upd[6 * 2 * m + m + (c >> 2)] = w;
+    }
+  };
+  pre(reg, imp, tid);
+  for (int r = 1; r < sw.rounds; ++r) {
+    if (!sw.round_live(r)) continue;
+    const int c = sw.contact(r);
+    Contact q = {};
+    Impulse l = {};
+    if (c < 4 * m) {
+      q = contact_at(c);
+      l = sw.lam_get(q.slot, c & 3);
+    }
+    pre(q, l, c);
+  }
+  sw.sync();
+  body_sums(sw, UPD_COMPS);
+  sw.sync();
+
+  const float* cnt = vw + 6 * n;
+  if (tid < 4 * m) reg.relax = pair_relax(reg, cnt, relaxation);
+  auto load = [&](int c) {
+    Contact q = contact_at(c);
+    q.relax = pair_relax(q, cnt, relaxation);
+    return q;
+  };
+  jacobi_sweeps(reg, imp, load, sw, iterations);
+
+  // ---- outputs (the overflow rounds' impulses are in lam already) --------
+  if (tid < 4 * m) sw.lam_put(reg.slot, tid & 3, imp);
+  for (int i = tid; i < UPD_COMPS * n; i += sw.nthr) vwc_e[i] = i < 6 * n ? vw[i] + 0.f : vw[i];
 }
 
-size_t smem_bytes(int n, int p) {
-  return sizeof(float) * ((size_t)(ROWS + 6 + 1) * n + (size_t)(12 + INV_ROWS) * p) +
-         sizeof(int) * (2 * (size_t)p + n + 1);
-}
+size_t middle_smem_bytes(int n, int p) { return sizeof(float) * (size_t)middle_layout(n, p).words; }
 
 }  // namespace
 
@@ -322,23 +421,28 @@ size_t smem_bytes(int n, int p) {
 
 extern "C" {
 
-long long scx_planar_middle_smem_bytes(int n, int p) { return (long long)smem_bytes(n, p); }
+long long scx_planar_middle_smem_bytes(int n, int p) { return (long long)middle_smem_bytes(n, p); }
 
-// Once per device and variant, before its first launch: lets the variant
-// take all of the current device's opt-in shared memory, and reports the
-// largest block (pair count P) and shared-memory size a launch may use.
-int scx_planar_middle_prepare(int box_only, int* max_threads, int* max_smem) {
+// Once per device, variant and launch size, before the first such launch:
+// reports the current device's opt-in shared memory per block, and lets the
+// variant take all of it if a launch of `smem` bytes needs more than the
+// default 48 KB.
+int scx_planar_middle_prepare(int box_only, long long smem, int* max_smem) {
   auto kernel = box_only ? planar_middle_kernel<true> : planar_middle_kernel<false>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
+  if (err == cudaSuccess && smem > 48 * 1024 && smem <= *max_smem)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *max_smem);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  if (err == cudaSuccess) *max_threads = attr.maxThreadsPerBlock;
   return (int)err;
+}
+
+// CTAs of a launch of `smem` bytes that one SM holds at once.
+int scx_planar_middle_occupancy(int box_only, long long smem, int* ctas) {
+  auto kernel = box_only ? planar_middle_kernel<true> : planar_middle_kernel<false>;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, MID_THREADS,
+                                                            (size_t)smem);
 }
 
 int scx_planar_middle(const void* rows, const void* ia, const void* ib, const void* pvf,
@@ -346,9 +450,10 @@ int scx_planar_middle(const void* rows, const void* ia, const void* ib, const vo
                       void* valid, void* trig, int e, int n, int p, int box_only,
                       int iterations, float bias_scale, float slop, float rest_thr,
                       float relaxation, float warm_start, void* stream) {
-  size_t smem = smem_bytes(n, p);
+  if (e == 0) return 0;  // an empty fleet: nothing to launch
+  size_t smem = middle_smem_bytes(n, p);
   auto kernel = box_only ? planar_middle_kernel<true> : planar_middle_kernel<false>;
-  kernel<<<e, p, smem, (cudaStream_t)stream>>>(
+  kernel<<<e, MID_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)rows, (const int*)ia, (const int*)ib, (const float*)pvf, (const float*)prev,
       (const float*)vw0, (float*)vwc, (float*)lam, (float*)cand, (float*)valid, (float*)trig, n,
       p, iterations, bias_scale, slop, rest_thr, relaxation, warm_start);

@@ -20,16 +20,25 @@
 //   in : jac [E,168,P] f32 (layout in planar_device.cuh), ia/ib [E,P] i32,
 //        vw0 [E,6,N] f32 (after the warm-start pre-application)
 //   out: vw [E,6,N], lam [E,12,P] (ln/l1/l2, k-minor)
-// One CTA per env, one thread per pair slot. A slot with a valid contact
-// copies its column of the pack to shared memory once (room for the whole
-// pack, 168 x P x 4 B = 86 KB at P=128) and the sweeps read it from there;
-// a slot without one reads only its validity and impulse rows, since it
-// changes nothing. Velocities [6][N] live in shared memory too.
-// Each sweep gathers by ia/ib, updates the impulses, and sums per body
-// through the same incidence lists and in the same order as the fused
-// middle kernel (no float atomics). It takes the pair -> body indices, not
-// scx's one-hot operands. A slot without a valid contact (cvalid 0 in all
-// four rows) changes no impulse, so it is left out of the lists.
+// Bound, like the fused middle's sweeps, by the latency of the dependent
+// sweeps, not by its bytes. One CTA of SOLVE_THREADS (4 warps) per env,
+// whatever P: the slots with a valid contact (live) are compacted in
+// ascending order with warp ballots; a slot without one changes no impulse
+// and adds nothing, so it only copies its impulse rows to the output.
+// Warps past the live contacts exit. Contact k of live pair i runs on lane
+// 4 i + k, reads its column of the pack once from global memory (the pack
+// is slot-fastest, so a warp's load touches the live slots' sectors of 4
+// rows) and keeps it in registers (the first round of the live threads;
+// a later round reads its column again each sweep). The sweeps, the per-body lists and their
+// deterministic sums are planar_device.cuh's, the same as the fused
+// middle's, and take the pair -> body indices, not scx's one-hot operands.
+// Shared memory holds the velocities [6][N], the lists and the update
+// buffer (12,568 B at N=64, P=128; 4 resident CTAs per SM, set by the
+// 128-register bound); the overflow rounds keep their impulses in the lam
+// output. Limits: P and N only
+// through solve_smem_bytes(N, P) <= the card's opt-in shared memory per
+// block (227 KB on an H100): P=128 takes N up to 7,916, N=64 takes P up
+// to 2,745.
 //
 // The plain PyTorch versions are scx_torch.physics.planar.sat_reference
 // and solve_reference; built with --fmad=false like planar_middle.cu.
@@ -84,132 +93,168 @@ __global__ void planar_sat_kernel(const float* __restrict__ ga_g, const float* _
   fp[2 * total + t] = (ga[13] > 0.f || gb[13] > 0.f) ? 1.f : 0.f;
 }
 
+constexpr int SOLVE_THREADS = 128;
+constexpr int SOLVE_MIN_CTAS = 4;  // resident per SM: at most 128 registers a thread
+
 // shared-memory layout of the solve kernel, in 4-byte words
-struct SolveSmem {
-  float *jac, *vw, *upd;
-  int *list, *off;
+struct SolveLayout {
+  int vw, body_slot, live, touched, toff, list, erank, upd, scratch, words;
 };
 
-__device__ __forceinline__ SolveSmem solve_carve(float* base, int n, int p) {
-  SolveSmem s;
-  s.jac = base;                          // [SOLVE_R][P]
-  s.vw = s.jac + SOLVE_R * p;            // [6][N]
-  s.upd = s.vw + 6 * n;                  // [6][2P]
-  s.list = (int*)(s.upd + 12 * p);       // [2P] incidence list
-  s.off = s.list + 2 * p;                // [N+1]
-  return s;
+__host__ __device__ inline SolveLayout solve_layout(int n, int p) {
+  SolveLayout l;
+  int o = 0;
+  l.vw = o;        o += 6 * n;      // [6][N]
+  l.body_slot = o; o += n;          // [N]
+  l.live = o;      o += p;          // [P] live slots, ascending
+  l.touched = o;   o += 2 * p;
+  l.toff = o;      o += 2 * p + 1;
+  l.list = o;      o += 2 * p;
+  l.erank = o;     o += 2 * p;
+  l.upd = o;       o += 12 * p;     // [6][2P]
+  l.scratch = o;   o += SOLVE_THREADS / 32 + 1;
+  l.words = o;
+  return l;
 }
 
-__global__ void planar_solve_kernel(const float* __restrict__ jac_g, const int* __restrict__ ia_g,
-                                    const int* __restrict__ ib_g, const float* __restrict__ vw0,
-                                    float* __restrict__ vw_out, float* __restrict__ lam, int n,
-                                    int np, int iterations) {
+// Contact k of the pack column col (the pair's slot) as the sweeps take it.
+__device__ __forceinline__ Contact pack_contact(const float* col, int np, int k, int ia, int ib,
+                                                int slot) {
+  auto g = [&](int q) { return ldg(col + (q * K + k) * np); };
+  auto g3 = [&](int q) { return V3{g(q), g(q + 1), g(q + 2)}; };
+  Contact c;
+  c.n = g3(Q_N);
+  c.t1 = g3(Q_T1);
+  c.t2 = g3(Q_T2);
+  c.a_an = g3(Q_AAN);
+  c.a_bn = g3(Q_ABN);
+  c.a_a1 = g3(Q_AA1);
+  c.a_b1 = g3(Q_AB1);
+  c.a_a2 = g3(Q_AA2);
+  c.a_b2 = g3(Q_AB2);
+  c.r_a = g3(Q_RA);
+  c.r_b = g3(Q_RB);
+  c.kn = g(Q_KN);
+  c.k1 = g(Q_K1);
+  c.k2 = g(Q_K2);
+  c.target = g(Q_TARGET);
+  c.cv = g(Q_CVALID) > 0.5f;
+  const float* pair = col + SOLVE_NQ * K * np;
+  c.im_a = ldg(pair);
+  c.im_b = ldg(pair + np);
+  c.relax = ldg(pair + 2 * np);
+  c.fr = ldg(pair + 3 * np);
+  c.ia = ia;
+  c.ib = ib;
+  c.slot = slot;
+  return c;
+}
+
+__device__ __forceinline__ Impulse pack_impulse(const float* col, int np, int k) {
+  return {ldg(col + (Q_LN0 * K + k) * np), ldg(col + (Q_L10 * K + k) * np),
+          ldg(col + (Q_L20 * K + k) * np)};
+}
+
+__global__ void __launch_bounds__(SOLVE_THREADS, SOLVE_MIN_CTAS) planar_solve_kernel(
+    const float* __restrict__ jac_g, const int* __restrict__ ia_g, const int* __restrict__ ib_g,
+    const float* __restrict__ vw0, float* __restrict__ vw_out, float* __restrict__ lam, int n,
+    int np, int iterations) {
   extern __shared__ float smem_words[];
-  const SolveSmem s = solve_carve(smem_words, n, np);
-  const int e = blockIdx.x;
-  const int p = threadIdx.x;
+  const SolveLayout L = solve_layout(n, np);
+  float* vw = smem_words + L.vw;
+  int* live = (int*)smem_words + L.live;
+  int* scratch = (int*)smem_words + L.scratch;
+  const int e = blockIdx.x, tid = threadIdx.x;
+  const float* jac_e = jac_g + (size_t)e * SOLVE_R * np;
+  const int* ia_e = ia_g + (size_t)e * np;
+  const int* ib_e = ib_g + (size_t)e * np;
+  float* vw_e = vw_out + (size_t)e * 6 * n;
+  float* lam_e = lam + (size_t)e * 3 * K * np;
+  // a sweep adds +0 to an impulse that does not change: the same here
+  const float plus = iterations > 0 ? 0.f : -0.f;
 
-  const float* je = jac_g + (size_t)e * SOLVE_R * np + p;  // this pair slot's column
-  for (int i = p; i < 6 * n; i += blockDim.x) s.vw[i] = vw0[(size_t)e * 6 * n + i];
-  const int ia = ia_g[(size_t)e * np + p];
-  const int ib = ib_g[(size_t)e * np + p];
-  bool cv[K], any_cv = false;
-  float ln[K], l1[K], l2[K];
+  for (int i = tid; i < 6 * n; i += SOLVE_THREADS) vw[i] = vw0[(size_t)e * 6 * n + i];
+  for (int j = tid; j < n; j += SOLVE_THREADS) ((int*)smem_words)[L.body_slot + j] = -1;
+
+  // ---- live slots, ascending; the others copy their impulse rows ---------
+  int m = 0;
+  for (int base = 0; base < np; base += SOLVE_THREADS) {
+    const int p = base + tid;
+    bool lv = false;
+    if (p < np) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    cv[k] = je[(Q_CVALID * K + k) * np] > 0.5f;
-    any_cv = any_cv || cv[k];
-    ln[k] = je[(Q_LN0 * K + k) * np];
-    l1[k] = je[(Q_L10 * K + k) * np];
-    l2[k] = je[(Q_L20 * K + k) * np];
-  }
-  // Only a slot with a valid contact reads the rest of its column (in this
-  // fleet 7% of the slots do); it alone reads it back in the sweeps.
-  float* inv = s.jac + p;
-  if (any_cv) {
-#pragma unroll 8
-    for (int r = 0; r < SOLVE_R; ++r) inv[r * np] = je[r * np];
-  }
-  auto get = [&](int q, int k) { return inv[(q * K + k) * np]; };
-  auto get3 = [&](int q, int k) { return V3{get(q, k), get(q + 1, k), get(q + 2, k)}; };
-  const int pair_row = SOLVE_NQ * K;
-  float im_a = 0.f, im_b = 0.f, relax = 0.f, fr = 0.f;
-  if (any_cv) {
-    im_a = inv[(pair_row + 0) * np];
-    im_b = inv[(pair_row + 1) * np];
-    relax = inv[(pair_row + 2) * np];
-    fr = inv[(pair_row + 3) * np];
-  }
-
-  int* ia_s = (int*)s.upd;
-  int* ib_s = ia_s + np;
-  ia_s[p] = any_cv ? ia : -1;
-  ib_s[p] = any_cv ? ib : -1;
-  __syncthreads();
-  build_incidence(ia_s, ib_s, s.off, s.list, n, np);
-
-  float lin_a[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}, lin_b[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int it = 0; it < iterations; ++it) {
-    if (any_cv) {  // a slot without one keeps its impulses and adds nothing
-      const V3 va = {s.vw[0 * n + ia], s.vw[1 * n + ia], s.vw[2 * n + ia]};
-      const V3 wa = {s.vw[3 * n + ia], s.vw[4 * n + ia], s.vw[5 * n + ia]};
-      const V3 vb = {s.vw[0 * n + ib], s.vw[1 * n + ib], s.vw[2 * n + ib]};
-      const V3 wb = {s.vw[3 * n + ib], s.vw[4 * n + ib], s.vw[5 * n + ib]};
+      for (int k = 0; k < K; ++k) lv = lv || ldg(jac_e + (Q_CVALID * K + k) * np + p) > 0.5f;
+    }
+    int total;
+    const int r = block_rank(lv, scratch, total);
+    if (lv) {
+      live[m + r] = p;
+    } else if (p < np) {
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const V3 n_ = get3(Q_N, k), t1 = get3(Q_T1, k), t2 = get3(Q_T2, k);
-        const V3 r_a = get3(Q_RA, k), r_b = get3(Q_RB, k);
-        V3 v = (va + cross(wa, r_a)) - (vb + cross(wb, r_b));
-        float d_ln = (get(Q_TARGET, k) - dot(v, n_)) / get(Q_KN, k) * relax;
-        float ln_new = fmaxf(ln[k] + d_ln, 0.f);
-        d_ln = cv[k] ? ln_new - ln[k] : 0.f;
-        ln_new = ln[k] + d_ln;
-        float max_f = fr * ln_new;
-        float d_l1 = -dot(v, t1) / get(Q_K1, k) * relax;
-        float d_l2 = -dot(v, t2) / get(Q_K2, k) * relax;
-        float l1_new = clip(l1[k] + d_l1, -max_f, max_f);
-        float l2_new = clip(l2[k] + d_l2, -max_f, max_f);
-        d_l1 = cv[k] ? l1_new - l1[k] : 0.f;
-        d_l2 = cv[k] ? l2_new - l2[k] : 0.f;
-        ln[k] = ln_new;
-        l1[k] = l1[k] + d_l1;
-        l2[k] = l2[k] + d_l2;
-        V3 imp = n_ * d_ln + t1 * d_l1 + t2 * d_l2;
-        V3 dw_a = get3(Q_AAN, k) * d_ln + get3(Q_AA1, k) * d_l1 + get3(Q_AA2, k) * d_l2;
-        V3 dw_b = get3(Q_ABN, k) * d_ln + get3(Q_AB1, k) * d_l1 + get3(Q_AB2, k) * d_l2;
-        V3 la = imp * im_a, lb = imp * im_b;
-        const float ua[6] = {la.x, la.y, la.z, dw_a.x, dw_a.y, dw_a.z};
-        const float ub[6] = {lb.x, lb.y, lb.z, dw_b.x, dw_b.y, dw_b.z};
-#pragma unroll
-        for (int c = 0; c < 6; ++c) {
-          lin_a[c] = k == 0 ? ua[c] : lin_a[c] + ua[c];
-          lin_b[c] = k == 0 ? ub[c] : lin_b[c] + ub[c];
-        }
+        const Impulse l = pack_impulse(jac_e + p, np, k);
+        lam_e[(0 * K + k) * np + p] = l.ln + plus;
+        lam_e[(1 * K + k) * np + p] = l.l1 + plus;
+        lam_e[(2 * K + k) * np + p] = l.l2 + plus;
       }
     }
-#pragma unroll
-    for (int c = 0; c < 6; ++c) {
-      s.upd[c * 2 * np + p] = lin_a[c];
-      s.upd[c * 2 * np + np + p] = -lin_b[c];
+    m += total;
+  }
+  __syncthreads();  // the live list is written
+  if (m == 0) {
+    for (int i = tid; i < 6 * n; i += SOLVE_THREADS) vw_e[i] = vw[i] + plus;
+    return;
+  }
+
+  // ---- the live warps: lists, invariants, sweeps -------------------------
+  const int nwarps = min((4 * m + 31) / 32, SOLVE_THREADS / 32);
+  if (tid >= 32 * nwarps) return;
+  Sweep sw;
+  sw.vw = vw;
+  sw.n = n;
+  sw.upd = smem_words + L.upd;
+  sw.touched = (int*)smem_words + L.touched;
+  sw.toff = (int*)smem_words + L.toff;
+  sw.list = (int*)smem_words + L.list;
+  sw.lam = lam_e;
+  sw.np = np;
+  sw.m = m;
+  sw.nthr = 32 * nwarps;
+  sw.nwarps = nwarps;
+  sw.rounds = (4 * m + sw.nthr - 1) / sw.nthr;
+  sw.tid = tid;
+  if (tid < 32) {  // warp 0 sorts the live pair sides by body
+    auto key = [&](int en) { return en < m ? ia_e[live[en]] : ib_e[live[en - m]]; };
+    const int nt = build_lists(m, key, (int*)smem_words + L.body_slot, (int*)sw.touched,
+                               (int*)sw.toff, (int*)sw.list, (int*)smem_words + L.erank);
+    if (tid == 0) scratch[0] = nt;
+  }
+  auto load = [&](int c) {
+    const int p = live[c >> 2];
+    return pack_contact(jac_e + p, np, c & 3, ia_e[p], ib_e[p], p);
+  };
+  Contact reg = {};  // round 0: contact tid
+  Impulse imp = {};
+  if (tid < 4 * m) {
+    reg = load(tid);
+    imp = pack_impulse(jac_e + reg.slot, np, tid & 3);
+  }
+  for (int r = 1; r < sw.rounds; ++r) {  // overflow: impulses kept in lam
+    const int c = sw.contact(r);
+    if (c < 4 * m) {
+      const int p = live[c >> 2];
+      sw.lam_put(p, c & 3, pack_impulse(jac_e + p, np, c & 3));
     }
-    __syncthreads();
-    body_sums(s.off, s.list, s.vw, s.upd, 6, n, np);
-    __syncthreads();
   }
+  sw.sync();  // the lists are built
+  sw.nt = scratch[0];
+  jacobi_sweeps(reg, imp, load, sw, iterations);
 
-  for (int i = p; i < 6 * n; i += blockDim.x) vw_out[(size_t)e * 6 * n + i] = s.vw[i];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    lam[(size_t)e * 3 * K * np + (0 * K + k) * np + p] = ln[k];
-    lam[(size_t)e * 3 * K * np + (1 * K + k) * np + p] = l1[k];
-    lam[(size_t)e * 3 * K * np + (2 * K + k) * np + p] = l2[k];
-  }
+  if (tid < 4 * m) sw.lam_put(reg.slot, tid & 3, imp);  // later rounds' are in lam already
+  for (int i = tid; i < 6 * n; i += sw.nthr) vw_e[i] = vw[i] + plus;
 }
 
-size_t solve_smem_bytes(int n, int p) {
-  return sizeof(float) * ((size_t)6 * n + (size_t)(SOLVE_R + 12) * p) +
-         sizeof(int) * (2 * (size_t)p + n + 1);
-}
+size_t solve_smem_bytes(int n, int p) { return sizeof(float) * (size_t)solve_layout(n, p).words; }
 
 }  // namespace
 
@@ -238,27 +283,31 @@ int scx_planar_sat(const void* ga, const void* gb, const void* pvf, void* fk, vo
 
 long long scx_planar_solve_smem_bytes(int n, int p) { return (long long)solve_smem_bytes(n, p); }
 
-// Once per device, before the first launch: lets the solve kernel take all
-// of the current device's opt-in shared memory, and reports the largest
-// block (pair count P) and shared-memory size a launch may use.
-int scx_planar_solve_prepare(int* max_threads, int* max_smem) {
+// Once per device and launch size, before the first such launch: reports
+// the current device's opt-in shared memory per block, and lets the solve
+// kernel take all of it if a launch of `smem` bytes needs more than the
+// default 48 KB.
+int scx_planar_solve_prepare(long long smem, int* max_smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
+  if (err == cudaSuccess && smem > 48 * 1024 && smem <= *max_smem)
     err = cudaFuncSetAttribute(planar_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                *max_smem);
-  cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, planar_solve_kernel);
-  if (err == cudaSuccess) *max_threads = attr.maxThreadsPerBlock;
   return (int)err;
+}
+
+// CTAs of a launch of `smem` bytes that one SM holds at once.
+int scx_planar_solve_occupancy(long long smem, int* ctas) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, planar_solve_kernel,
+                                                            SOLVE_THREADS, (size_t)smem);
 }
 
 int scx_planar_solve(const void* jac, const void* ia, const void* ib, const void* vw0, void* vw,
                      void* lam, int e, int n, int p, int iterations, void* stream) {
   if (e == 0) return 0;  // an empty fleet: nothing to launch, as in scx_planar_sat
-  planar_solve_kernel<<<e, p, solve_smem_bytes(n, p), (cudaStream_t)stream>>>(
+  planar_solve_kernel<<<e, SOLVE_THREADS, solve_smem_bytes(n, p), (cudaStream_t)stream>>>(
       (const float*)jac, (const int*)ia, (const int*)ib, (const float*)vw0, (float*)vw,
       (float*)lam, n, p, iterations);
   return (int)cudaGetLastError();

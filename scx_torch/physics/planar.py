@@ -1009,27 +1009,22 @@ MIDDLE_KERNEL_LAUNCHES = 0  # launches of the CUDA middle kernel, never reset he
 
 
 @functools.cache
-def _middle_prepare(device_index: int, box_only: int) -> tuple[int, int]:
-    """Readies a kernel variant on a device once: (max P, max shared bytes)."""
-    max_p, max_smem = ctypes.c_int(), ctypes.c_int()
+def _middle_check_shape(device_index: int, box_only: int, nb: int, p: int) -> None:
+    """Raises unless one CTA per env can hold N bodies and P pair slots in
+    shared memory (csrc/planar_middle.cu: P=128 takes N up to 6,351, N=64
+    takes P up to 1,010 on an H100); readies the kernel variant for launches
+    of that size once."""
+    lib = _build.load()
+    smem = lib.scx_planar_middle_smem_bytes(nb, p)
+    max_smem = ctypes.c_int()
     with torch.cuda.device(device_index):
-        err = _build.load().scx_planar_middle_prepare(
-            box_only, ctypes.byref(max_p), ctypes.byref(max_smem))
+        err = lib.scx_planar_middle_prepare(box_only, smem, ctypes.byref(max_smem))
     if err != 0:
         raise RuntimeError(f"middle kernel setup failed: CUDA error {err}")
-    return max_p.value, max_smem.value
-
-
-@functools.cache
-def _middle_check_shape(device_index: int, box_only: int, nb: int, p: int) -> None:
-    """Raises unless one CTA per env with P threads can take N bodies."""
-    max_p, max_smem = _middle_prepare(device_index, box_only)
-    smem = _build.load().scx_planar_middle_smem_bytes(nb, p)
-    if not (1 <= p <= max_p and nb >= 1 and smem <= max_smem):
+    if not (p >= 1 and nb >= 1 and smem <= max_smem.value):
         raise ValueError(
-            f"middle kernel cannot take N={nb}, P={p}: one CTA per env with "
-            f"P threads (max {max_p}) and {smem} B of shared memory (max "
-            f"{max_smem} B on this device)"
+            f"middle kernel cannot take N={nb}, P={p}: one CTA per env needs {smem} B "
+            f"of shared memory (max {max_smem.value} B on this device)"
         )
 
 
@@ -1288,27 +1283,22 @@ def solve_reference(jac, ia, ib, vw0, iterations: int):
 
 
 @functools.cache
-def _solve_prepare(device_index: int) -> tuple[int, int]:
-    """Readies the solve kernel on a device once: (max P, max shared bytes)."""
-    max_p, max_smem = ctypes.c_int(), ctypes.c_int()
+def _solve_check_shape(device_index: int, nb: int, p: int) -> None:
+    """Raises unless one CTA per env can hold N bodies and P pair slots in
+    shared memory (csrc/planar_staged.cu: P=128 takes N up to 7,916, N=64
+    takes P up to 2,745 on an H100); readies the kernel for launches of
+    that size once."""
+    lib = _build.load()
+    smem = lib.scx_planar_solve_smem_bytes(nb, p)
+    max_smem = ctypes.c_int()
     with torch.cuda.device(device_index):
-        err = _build.load().scx_planar_solve_prepare(
-            ctypes.byref(max_p), ctypes.byref(max_smem))
+        err = lib.scx_planar_solve_prepare(smem, ctypes.byref(max_smem))
     if err != 0:
         raise RuntimeError(f"solve kernel setup failed: CUDA error {err}")
-    return max_p.value, max_smem.value
-
-
-@functools.cache
-def _solve_check_shape(device_index: int, nb: int, p: int) -> None:
-    """Raises unless one CTA per env with P threads can hold the pack."""
-    max_p, max_smem = _solve_prepare(device_index)
-    smem = _build.load().scx_planar_solve_smem_bytes(nb, p)
-    if not (1 <= p <= max_p and nb >= 1 and smem <= max_smem):
+    if not (p >= 1 and nb >= 1 and smem <= max_smem.value):
         raise ValueError(
-            f"solve kernel cannot take N={nb}, P={p}: one CTA per env with "
-            f"P threads (max {max_p}) and {smem} B of shared memory (max "
-            f"{max_smem} B on this device)"
+            f"solve kernel cannot take N={nb}, P={p}: one CTA per env needs {smem} B "
+            f"of shared memory (max {max_smem.value} B on this device)"
         )
 
 

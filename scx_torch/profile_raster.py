@@ -22,9 +22,9 @@ caller sees it: the launch, the G-buffer's mat and covered planes, and
 the host's dispatch, which bounds the small cube frame), `kernel_ms` the
 device time of the CUDA kernel alone (torch.profiler). It uses only
 entry points that every version of the port has, so the same file,
-copied with render/cubes.py into another checkout's scx_torch/, times
-that checkout: run the two in turns (A, B, B, A) on one card to compare
-them.
+copied with render/cubes.py and timing.py into another checkout's
+scx_torch/, times that checkout: run the two in turns (A, B, B, A) on
+one card to compare them.
 Prints one JSON line per kernel and per rate, with the card's name and
 power limit. Needs a CUDA device.
 """
@@ -44,40 +44,11 @@ from scx_torch.ops import raster_clusters as trc
 from scx_torch.render import city
 from scx_torch.render import pipeline as rp
 from scx_torch.render.cubes import cube_frame
-
-
-def _ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def kernel_ms(fn, reps, name):
-    """Mean device time of one launch of the CUDA kernel whose name holds
-    `name`, over the launches traced in `reps` calls of fn after one
-    warm-up (the tracer may drop one)."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [ev.time_range.elapsed_us() for ev in prof.events()
-          if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.name]
-    if not us:
-        raise RuntimeError(f"{name}: no launch traced in {reps} calls")
-    return sum(us) / len(us) / 1e3
+from scx_torch.timing import cuda_ms, kernel_ms
 
 
 def _times(fn, reps, name):
-    return {"ms": _ms(fn, reps), "kernel_ms": kernel_ms(fn, reps, name)}
+    return {"ms": cuda_ms(fn, reps), "kernel_ms": kernel_ms(fn, reps, name)}
 
 
 def _host_s(fn, n):

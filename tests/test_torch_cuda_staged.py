@@ -14,9 +14,12 @@ from dataclasses import replace
 import pytest
 import torch
 
+from scx_torch import _build
 from scx_torch.physics import fleet
 from scx_torch.physics import planar as tp
 from scx_torch.physics.solver import SolverParams
+
+import torch_planar_emu
 
 pytestmark = pytest.mark.cuda
 ALL_KINDS = ("box", "sphere", "capsule")
@@ -26,6 +29,7 @@ CASES = [
     (128, 64, 128, ("box",), False),
     (8, 64, 256, ("box",), False),
     (8, 512, 128, ("box",), False),
+    (64, 512, 128, ("box",), False),
 ]
 
 
@@ -89,6 +93,29 @@ def test_solve_kernel_matches_plain(gpu, envs, bodies, pairs, kinds, triggers):
     torch.testing.assert_close(lam_k, lam_r, rtol=0, atol=2e-5)
 
 
+def test_solve_kernel_takes_every_branch(gpu):
+    """Envs with no pair, with pair-valid slots and no contact, with more
+    live pairs than the register rounds hold, and a pile whose live contacts
+    span more than one warp (tests/test_torch_staged_emulated.py)."""
+    params = SolverParams(max_pairs=128, iterations=6, shape_kinds=("box",))
+    b = torch_planar_emu.cat_fleets(torch_planar_emu.lattice_fleet([3.0, 1.01, 0.98], device=gpu),
+                                    fleet.build_pile_fleet(1, 64, gpu))
+    cache = tp.empty_planar_cache(4, 128, device=gpu)
+    for _ in range(3):
+        b, cache, _ = tp.step_planar_staged(b, params, cache)
+    b = tp.planar_integrate_velocities(b, params.dt, params.gravity)
+    ia, ib, pair_valid, _ = tp.planar_broadphase(b, 128)
+    con = tp.planar_contacts(b, ia, ib, pair_valid, ("box",))
+    lam0 = tp.planar_gather_warm(cache, ia, ib, pair_valid, con.cand)
+    jac, vw0, _ = tp.solve_pack(b, con, params, ia, ib, lam0)
+    live = con.valid.any(1).sum(1).cpu()
+    assert live[0] == 0 and live[1] == 0 and live[2] > 64 and live[3] > 8
+    vw_k, lam_k = (x.cpu() for x in tp.solve_fleet(jac, ia, ib, vw0, params.iterations))
+    vw_r, lam_r = (x.cpu() for x in tp.solve_reference(jac, ia, ib, vw0, params.iterations))
+    torch.testing.assert_close(vw_k, vw_r, rtol=0, atol=2e-5)
+    torch.testing.assert_close(lam_k, lam_r, rtol=0, atol=2e-5)
+
+
 def test_staged_step_matches_fused(gpu):
     """20 steps of both paths from one fleet: 99% of envs within 1e-5 (a
     graze flip may move an env)."""
@@ -111,8 +138,8 @@ def test_kernels_reject_bad_operands(gpu):
     jac, vw0, _ = tp.solve_pack(b, con, params, ia, ib, None)
     with pytest.raises(ValueError):
         tp.solve_fleet(jac, ia.long(), ib, vw0, 6)
-    wide = torch.zeros((4, 168, 2048), device=gpu)
-    idx = torch.zeros((4, 2048), dtype=torch.int32, device=gpu)
+    wide = torch.zeros((4, 168, 4096), device=gpu)  # past the shared memory of a block
+    idx = torch.zeros((4, 4096), dtype=torch.int32, device=gpu)
     with pytest.raises(ValueError, match="cannot take"):
         tp.solve_fleet(wide, idx, idx, vw0, 6)
 
@@ -126,3 +153,19 @@ def test_kernels_take_an_empty_fleet(gpu):
     vw, lam = tp.solve_fleet(torch.zeros(0, 168, 8, device=gpu), idx, idx,
                              torch.zeros(0, 6, 4, device=gpu), 6)
     assert tuple(vw.shape) == (0, 6, 4) and tuple(lam.shape) == (0, 12, 8)
+
+
+def test_solve_kernel_limits(gpu):
+    """The shapes the wrapper takes: at least N=1,250 at P=128 and P=316 at
+    N=64 (the one-thread-per-slot kernel's limits); one past the shared
+    memory the card gives a block raises."""
+    lib = _build.load()
+    opt_in = torch.cuda.get_device_properties(gpu).shared_memory_per_block_optin
+    n_max = max(n for n in range(1, 20000) if lib.scx_planar_solve_smem_bytes(n, 128) <= opt_in)
+    p_max = max(p for p in range(1, 5000) if lib.scx_planar_solve_smem_bytes(64, p) <= opt_in)
+    assert n_max >= 1250 and p_max >= 316
+    for nb, p in ((n_max, 128), (64, p_max)):
+        tp._solve_check_shape(gpu.index, nb, p)
+    for nb, p in ((n_max + 1, 128), (64, p_max + 1)):
+        with pytest.raises(ValueError, match="cannot take"):
+            tp._solve_check_shape(gpu.index, nb, p)

@@ -1,17 +1,18 @@
 """The CUDA middle kernel's source, run on the CPU against middle_reference.
 
 The device part of csrc/planar_middle.cu (everything above its host entry
-points, with the shared header csrc/planar_device.cuh) is plain C++ apart from a few CUDA keywords. Built with g++ and a
-small shim (one host thread per CUDA thread, std::barrier for
-__syncthreads, one block at a time), it runs here without a GPU, so the
-kernel's logic is checked on every run; on the card tests/
-test_torch_cuda_middle.py checks the nvcc build. Same contract as
-tests/test_torch_planar_middle.py.
+points, with the shared header csrc/planar_device.cuh), built with g++
+and the shim of tests/torch_planar_emu.py (one host thread per CUDA
+thread of the env's 4-warp CTA; barriers for __syncthreads, __syncwarp
+and the named barrier of the live warps; warp votes, shuffles and
+matches), runs here without a GPU, so the kernel's logic is checked on
+every run; on the card tests/test_torch_cuda_middle.py checks the nvcc
+build. Same contract as tests/test_torch_planar_middle.py; the case that
+takes every branch (no pair, no contact, the overflow rounds, padding
+next to live slots) must give the reference's bits.
 """
 
 import ctypes
-import shutil
-import subprocess
 from dataclasses import replace
 from pathlib import Path
 
@@ -22,62 +23,27 @@ from scx_torch.physics import fleet
 from scx_torch.physics import planar as tp
 from scx_torch.physics.solver import SolverParams
 
+import torch_planar_emu
+
 SRC = Path(tp.__file__).resolve().parent / "csrc" / "planar_middle.cu"
 ALL_KINDS = ("box", "sphere", "capsule")
 
-_SHIM = r"""
-#include <barrier>
-#include <cmath>
-#include <cstddef>
-#include <math.h>
-#include <thread>
-#include <vector>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __restrict__ __restrict
-#define __shared__
-struct emu_dim { unsigned x, y, z; };
-thread_local emu_dim threadIdx;
-static emu_dim blockIdx, blockDim;
-static std::barrier<>* emu_bar;
-inline void __syncthreads() { emu_bar->arrive_and_wait(); }
-namespace { alignas(16) float smem_words[1 << 18]; }
-#include "device_part.inc"
-
-template <bool B>
-static void emu_run(const float* rows, const int* ia, const int* ib, const float* pvf,
-                    const float* prev, const float* vw0, float* vwc, float* lam, float* cand,
-                    float* valid, float* trig, int e, int n, int p, int it, float bs,
-                    float slop, float rt, float rel, float ws) {
-  blockDim.x = p;
-  for (int b = 0; b < e; ++b) {
-    blockIdx.x = b;
-    std::barrier<> bar(p);
-    emu_bar = &bar;
-    std::vector<std::thread> ts;
-    for (int t = 0; t < p; ++t)
-      ts.emplace_back([&, t] {
-        threadIdx.x = t;
-        planar_middle_kernel<B>(rows, ia, ib, pvf, prev, vw0, vwc, lam, cand, valid, trig,
-                                n, p, it, bs, slop, rt, rel, ws);
-      });
-    for (auto& th : ts) th.join();
-  }
-}
-
+_TAIL = r"""
 extern "C" int emu_middle(const float* rows, const int* ia, const int* ib, const float* pvf,
                           const float* prev, const float* vw0, float* vwc, float* lam,
                           float* cand, float* valid, float* trig, int e, int n, int p,
                           int box_only, int it, float bs, float slop, float rt, float rel,
                           float ws) {
-  if (smem_bytes(n, p) > sizeof(smem_words)) return 1;
-  if (box_only)
-    emu_run<true>(rows, ia, ib, pvf, prev, vw0, vwc, lam, cand, valid, trig, e, n, p, it, bs,
-                  slop, rt, rel, ws);
-  else
-    emu_run<false>(rows, ia, ib, pvf, prev, vw0, vwc, lam, cand, valid, trig, e, n, p, it, bs,
-                   slop, rt, rel, ws);
+  if (middle_smem_bytes(n, p) > sizeof(smem_words)) return 1;
+  for (int b = 0; b < e; ++b)
+    emu_block(b, MID_THREADS, [&] {
+      if (box_only)
+        planar_middle_kernel<true>(rows, ia, ib, pvf, prev, vw0, vwc, lam, cand, valid, trig,
+                                   n, p, it, bs, slop, rt, rel, ws);
+      else
+        planar_middle_kernel<false>(rows, ia, ib, pvf, prev, vw0, vwc, lam, cand, valid, trig,
+                                    n, p, it, bs, slop, rt, rel, ws);
+    });
   return 0;
 }
 """
@@ -85,22 +51,7 @@ extern "C" int emu_middle(const float* rows, const int* ia, const int* ib, const
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel source for the CPU")
-    d = tmp_path_factory.mktemp("emu")
-    (d / "cuda_runtime.h").write_text("")
-    (d / "device_part.inc").write_text(SRC.read_text().split("// ---- host entry points")[0])
-    for header in SRC.parent.glob("*.cuh"):  # the device code shared between the kernels
-        shutil.copy(header, d)
-    (d / "emu.cpp").write_text(_SHIM)
-    lib = d / "libemu.so"
-    subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-pthread",
-         f"-I{d}", "-o", str(lib), str(d / "emu.cpp")],
-        check=True, capture_output=True, text=True,
-    )
-    so = ctypes.CDLL(str(lib))
+    so = torch_planar_emu.build(SRC, _TAIL, tmp_path_factory.mktemp("emu"))
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.emu_middle.argtypes = [vp] * 11 + [i32] * 5 + [f32] * 5
     so.emu_middle.restype = i32
@@ -127,6 +78,7 @@ def _run(so, ops, params):
     (4, 24, 37, ALL_KINDS, True),
     (4, 64, 128, ("box",), False),
     (2, 150, 64, ALL_KINDS, False),
+    (2, 512, 128, ("box",), False),
 ])
 def test_kernel_source_matches_reference(emulated, envs, bodies, pairs, kinds, triggers):
     params = SolverParams(max_pairs=pairs, iterations=6, shape_kinds=kinds)
@@ -153,3 +105,37 @@ def test_kernel_source_matches_reference(emulated, envs, bodies, pairs, kinds, t
         assert trig_r.sum() > 0
     torch.testing.assert_close(vwc_k, vwc_r, rtol=0, atol=5e-5)
     torch.testing.assert_close(lam_k, lam_r, rtol=0, atol=5e-4)
+
+
+def test_kernel_source_takes_every_branch(emulated):
+    """Four envs of a lattice fleet after one warm step: no broadphase pair;
+    pair-valid slots with no contact; more live pairs than the register
+    rounds hold (the overflow rounds, all 4 warps); a pile with live
+    contacts on more than one warp, whose slots past the broadphase's pairs
+    are padding next to live ones. The slots with no valid contact are left
+    out of the sweeps and the lists; the reference adds their updates,
+    which are +-0 only while their invariants are finite: checked on the
+    same contacts' solve pack. Then the kernel must give the reference's
+    bits."""
+    params = SolverParams(max_pairs=128, iterations=6, shape_kinds=("box",))
+    b = torch_planar_emu.cat_fleets(torch_planar_emu.lattice_fleet([3.0, 1.01, 0.98]),
+                                    fleet.build_pile_fleet(1, 64, "cpu"))
+    cache = tp.empty_planar_cache(4, 128, device="cpu")
+    for _ in range(3):
+        b, cache, _ = tp.step_planar_cached(b, params, cache)
+    b1, ops, _ = tp.middle_operands(b, params, cache)
+    ops = [x.contiguous() for x in ops]
+    ker = _run(emulated, ops, params)
+    ref = tp.middle_reference(*ops, params)
+    pair_valid = ops[3] > 0.5
+    live = ref[3].sum(1) > 0                       # [E, P] slots with a valid contact
+    assert pair_valid[0].sum() == 0
+    assert pair_valid[1].sum() > 0 and live[1].sum() == 0
+    assert live[2].sum() > 64                      # 4 x 64 register contacts per CTA
+    assert 8 < live[3].sum() <= 64 and not pair_valid[3].all()
+    ia, ib = ops[1], ops[2]
+    con = tp.planar_contacts(b1, ia, ib, pair_valid, params.shape_kinds)
+    jac, _, _ = tp.solve_pack(b1, con, params, ia, ib, None)
+    assert torch.isfinite(jac.permute(0, 2, 1)[~live]).all()
+    for got, want in zip(ker, ref):
+        assert torch.equal(got, want)

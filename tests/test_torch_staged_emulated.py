@@ -1,18 +1,16 @@
 """The staged kernels' source, run on the CPU against their plain versions.
 
 The device part of csrc/planar_staged.cu (everything above its host entry
-points, with the shared header csrc/planar_device.cuh) is plain C++ apart
-from a few CUDA keywords. Built with g++ and a small shim (one host thread
-per CUDA thread, std::barrier for __syncthreads, one block at a time), the
-fleet SAT and the fleet solve run here without a GPU; on the card
-tests/test_torch_cuda_staged.py checks the nvcc build. The shared header is
-the one the fused middle kernel is built from
+points, with the shared header csrc/planar_device.cuh), built with g++
+and the shim of tests/torch_planar_emu.py (one host thread per CUDA
+thread, one block at a time; the solve kernel's warp intrinsics and
+barriers emulated), runs the fleet SAT and the fleet solve here without
+a GPU; on the card tests/test_torch_cuda_staged.py checks the nvcc build.
+The shared header is the one the fused middle kernel is built from
 (tests/test_torch_middle_emulated.py).
 """
 
 import ctypes
-import shutil
-import subprocess
 from dataclasses import replace
 from pathlib import Path
 
@@ -23,30 +21,12 @@ from scx_torch.physics import fleet
 from scx_torch.physics import planar as tp
 from scx_torch.physics.solver import SolverParams
 
+import torch_planar_emu
+
 SRC = Path(tp.__file__).resolve().parent / "csrc" / "planar_staged.cu"
 ALL_KINDS = ("box", "sphere", "capsule")
 
-_SHIM = r"""
-#include <barrier>
-#include <cmath>
-#include <cstddef>
-#include <math.h>
-#include <thread>
-#include <vector>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __restrict__ __restrict
-#define __shared__
-struct emu_dim { unsigned x, y, z; };
-thread_local emu_dim threadIdx;
-thread_local emu_dim blockIdx;
-static emu_dim blockDim;
-static std::barrier<>* emu_bar;
-inline void __syncthreads() { emu_bar->arrive_and_wait(); }
-namespace { alignas(16) float smem_words[1 << 18]; }
-#include "device_part.inc"
-
+_TAIL = r"""
 extern "C" void emu_layout(int* out) { planar_layout(out); }
 
 // the SAT kernel has no barrier: its threads run one after another
@@ -67,19 +47,9 @@ extern "C" int emu_sat(const float* ga, const float* gb, const float* pvf, float
 extern "C" int emu_solve(const float* jac, const int* ia, const int* ib, const float* vw0,
                          float* vw, float* lam, int e, int n, int p, int iterations) {
   if (solve_smem_bytes(n, p) > sizeof(smem_words)) return 1;
-  blockDim.x = p;
-  for (int b = 0; b < e; ++b) {
-    std::barrier<> bar(p);
-    emu_bar = &bar;
-    std::vector<std::thread> ts;
-    for (int t = 0; t < p; ++t)
-      ts.emplace_back([&, t] {
-        blockIdx.x = b;
-        threadIdx.x = t;
-        planar_solve_kernel(jac, ia, ib, vw0, vw, lam, n, p, iterations);
-      });
-    for (auto& th : ts) th.join();
-  }
+  for (int b = 0; b < e; ++b)
+    emu_block(b, SOLVE_THREADS,
+              [&] { planar_solve_kernel(jac, ia, ib, vw0, vw, lam, n, p, iterations); });
   return 0;
 }
 """
@@ -87,22 +57,7 @@ extern "C" int emu_solve(const float* jac, const int* ia, const int* ib, const f
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to build the kernel source for the CPU")
-    d = tmp_path_factory.mktemp("emu")
-    (d / "cuda_runtime.h").write_text("")
-    (d / "device_part.inc").write_text(SRC.read_text().split("// ---- host entry points")[0])
-    for header in SRC.parent.glob("*.cuh"):
-        shutil.copy(header, d)
-    (d / "emu.cpp").write_text(_SHIM)
-    lib = d / "libemu.so"
-    subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-pthread",
-         f"-I{d}", "-o", str(lib), str(d / "emu.cpp")],
-        check=True, capture_output=True, text=True,
-    )
-    so = ctypes.CDLL(str(lib))
+    so = torch_planar_emu.build(SRC, _TAIL, tmp_path_factory.mktemp("emu"))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     so.emu_sat.argtypes = [vp] * 6 + [i32] * 3
     so.emu_solve.argtypes = [vp] * 6 + [i32] * 4
@@ -140,6 +95,7 @@ CASES = [
     (4, 24, 37, ALL_KINDS, True),
     (4, 64, 128, ("box",), False),
     (2, 150, 64, ALL_KINDS, False),
+    (2, 512, 128, ("box",), False),
 ]
 
 
@@ -189,3 +145,39 @@ def test_solve_kernel_source_matches_reference(emulated, envs, bodies, pairs, ki
     assert lam_r.abs().sum() > 0
     torch.testing.assert_close(vw, vw_r, rtol=0, atol=2e-5)
     torch.testing.assert_close(lam, lam_r, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("iterations", [6, 0])
+def test_solve_kernel_source_takes_every_branch(emulated, iterations):
+    """Four envs after three staged steps: no broadphase pair; pair-valid
+    slots with no contact; more live pairs than the register rounds hold
+    (the overflow rounds); a pile with live contacts on more than one warp
+    and padded slots next to live ones. The slots with no valid contact are
+    left out of the sweeps and the lists; the reference adds their updates,
+    which are +-0 while their pack columns are finite (checked). The kernel
+    must give the reference's bits, with no sweep as well."""
+    params = SolverParams(max_pairs=128, iterations=6, shape_kinds=("box",))
+    b = torch_planar_emu.cat_fleets(torch_planar_emu.lattice_fleet([3.0, 1.01, 0.98]),
+                                    fleet.build_pile_fleet(1, 64, "cpu"))
+    cache = tp.empty_planar_cache(4, 128, device="cpu")
+    for _ in range(3):
+        b, cache, _ = tp.step_planar_staged(b, params, cache)
+    b = tp.planar_integrate_velocities(b, params.dt, params.gravity)
+    ia, ib, pair_valid, _ = tp.planar_broadphase(b, 128)
+    con = tp.planar_contacts(b, ia, ib, pair_valid, params.shape_kinds)
+    lam0 = tp.planar_gather_warm(cache, ia, ib, pair_valid, con.cand)
+    jac, vw0, _ = tp.solve_pack(b, con, params, ia, ib, lam0)
+    live = con.valid.any(1)
+    assert pair_valid[0].sum() == 0
+    assert pair_valid[1].sum() > 0 and live[1].sum() == 0
+    assert live[2].sum() > 64                      # 4 x 64 register contacts per CTA
+    assert 8 < live[3].sum() <= 64 and not pair_valid[3].all()
+    assert torch.isfinite(jac.permute(0, 2, 1)[~live]).all()
+    vw = torch.empty_like(vw0)
+    lam = torch.empty((4, 12, 128))
+    ia, ib, vw0 = ia.contiguous(), ib.contiguous(), vw0.contiguous()
+    rc = emulated.emu_solve(jac.data_ptr(), ia.data_ptr(), ib.data_ptr(), vw0.data_ptr(),
+                            vw.data_ptr(), lam.data_ptr(), 4, 64, 128, iterations)
+    assert rc == 0
+    vw_r, lam_r = tp.solve_reference(jac, ia, ib, vw0, iterations)
+    assert torch.equal(vw, vw_r) and torch.equal(lam, lam_r)
