@@ -106,8 +106,10 @@ def load() -> ctypes.CDLL:
     lib.scx_planar_middle_occupancy.restype = i32
     lib.scx_planar_layout.argtypes = [ctypes.POINTER(i32)]
     lib.scx_planar_layout.restype = None
-    lib.scx_planar_sat.argtypes = [vp] * 6 + [i32] * 3 + [vp]
+    lib.scx_planar_sat.argtypes = [vp] * 4 + [i32] * 4 + [vp]
     lib.scx_planar_sat.restype = i32
+    lib.scx_planar_sat_occupancy.argtypes = [i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+    lib.scx_planar_sat_occupancy.restype = i32
     lib.scx_planar_solve.argtypes = [vp] * 6 + [i32] * 4 + [vp]
     lib.scx_planar_solve.restype = i32
     lib.scx_planar_solve_smem_bytes.argtypes = [i32, i32]

@@ -1,9 +1,11 @@
 // Device code shared by the planar physics kernels (sm_90a): the plane
 // vector/quaternion/matrix helpers, the box/sphere/capsule contact
 // candidate generators (scx/physics/planar.py::_pair_candidates), the
-// first-max top-K contact select (_sat_core), the compaction and per-body
-// list helpers, and the relaxed-Jacobi sweeps with their deterministic
-// per-body sums (jacobi_sweeps). planar_middle.cu (the fused middle) and
+// first-max top-K contact select (_sat_core) and, for the fleet SAT, the
+// same select with the candidates streamed (pair_top4) and candidate 0
+// alone (pair_cand0), the compaction and per-body list helpers, and the
+// relaxed-Jacobi sweeps with their deterministic per-body sums
+// (jacobi_sweeps). planar_middle.cu (the fused middle) and
 // planar_staged.cu (the fleet SAT and the fleet solve) include it, so the
 // three kernels run the same device functions. Plain C++ apart from the
 // CUDA keywords, warp intrinsics and one named barrier: the CPU tests
@@ -189,9 +191,11 @@ __device__ __forceinline__ V3 cross_unit(int i, V3 v) {  // e_i x v
   return {-v.y, v.x, 0.f};
 }
 
-// 4 (point, depth) in the reference frame for a face reference.
+// NV (point, depth) in the reference frame for a face reference: all 4, or
+// the first alone (candidate 0, box_face_a0).
+template <int NV = 4>
 __device__ void face_candidates(V3 h_ref, V3 h_inc, const M3& r_inc, V3 t_inc,
-                                int axis_i, float sign_s, V3 pts[4], float deps[4]) {
+                                int axis_i, float sign_s, V3 pts[NV], float deps[NV]) {
   V3 e_i = onehot(axis_i);
   V3 n_out = e_i * sign_s;
   V3 n_in_inc = mtvec(r_inc, n_out);
@@ -205,9 +209,9 @@ __device__ void face_candidates(V3 h_ref, V3 h_inc, const M3& r_inc, V3 t_inc,
   V3 center = e_j * (sign_j * dot(h_inc, e_j));
   const float s0s[4] = {1.f, 1.f, -1.f, -1.f};
   const float s1s[4] = {1.f, -1.f, 1.f, -1.f};
-  V3 verts[4];
+  V3 verts[NV];
 #pragma unroll
-  for (int v = 0; v < 4; ++v)
+  for (int v = 0; v < NV; ++v)
     verts[v] = mvec(r_inc, center + e_k * (s0s[v] * hk) + e_l * (s1s[v] * hl)) + t_inc;
   V3 not_i = splat(1.f) - e_i;
   V3 lims = h_ref * not_i + e_i * 1e9f;
@@ -217,7 +221,7 @@ __device__ void face_candidates(V3 h_ref, V3 h_inc, const M3& r_inc, V3 t_inc,
   float safe_ni = fabsf(ni) < F(0.05) ? sign_nz(ni, -sign_s) * F(0.05) : ni;
   float h_i = dot(h_ref, e_i);
 #pragma unroll
-  for (int v = 0; v < 4; ++v) {
+  for (int v = 0; v < NV; ++v) {
     V3 c = vclip(verts[v], -lims, lims);
     float rest = dot(c * not_i, n_inc_ref);
     float xi = (d_plane - rest) / safe_ni;
@@ -262,12 +266,23 @@ __device__ void edge_candidate(V3 h_a, V3 h_b, const M3& r, V3 t, int ei, int ej
   pens[1] = vnorm(p_a2 - p_b2) - vnorm(p_a - p_b);
 }
 
-__device__ void box_box(V3 pos_a, Q4 quat_a, V3 h_a, V3 pos_b, Q4 quat_b, V3 h_b,
-                        Cand out[NCAND]) {
-  M3 ra = q_to_mat(quat_a);
-  M3 rb = q_to_mat(quat_b);
-  M3 r = mtm(ra, rb);
-  V3 t = mtvec(ra, pos_b - pos_a);
+// The first half of box_box: the frames, the 15 overlaps, and which
+// reference (face A, face B or the edge pair) makes the manifold.
+struct BoxPair {
+  M3 ra, rb, r;
+  V3 t, axis_e;
+  float min_e;
+  int bi, bj, best_fa, best_fb;
+  bool separated, use_edge, use_face_b, use_face_a;
+};
+
+__device__ __forceinline__ BoxPair box_pair(V3 pos_a, Q4 quat_a, V3 h_a, V3 pos_b, Q4 quat_b,
+                                            V3 h_b) {
+  BoxPair bp;
+  bp.ra = q_to_mat(quat_a);
+  bp.rb = q_to_mat(quat_b);
+  const M3& r = bp.r = mtm(bp.ra, bp.rb);
+  const V3& t = bp.t = mtvec(bp.ra, pos_b - pos_a);
 
   M3 absr = mabs(r, F(1e-7));
   V3 ov_face_a = h_a + mvec(absr, h_b) - vabs(t);
@@ -301,45 +316,85 @@ __device__ void box_box(V3 pos_a, Q4 quat_a, V3 h_a, V3 pos_b, Q4 quat_b, V3 h_b
       }
     }
   }
-  bool separated = vhmin(ov_face_a) < 0.f || vhmin(ov_face_b) < 0.f || min_edge_all < 0.f;
+  bp.separated = vhmin(ov_face_a) < 0.f || vhmin(ov_face_b) < 0.f || min_edge_all < 0.f;
+  bp.min_e = min_e;
+  bp.bi = bi;
+  bp.bj = bj;
+  bp.axis_e = axis_e;
 
-  int best_fa, best_fb;
   float min_fa, min_fb;
-  argmin3(ov_face_a, best_fa, min_fa);
-  argmin3(ov_face_b, best_fb, min_fb);
+  argmin3(ov_face_a, bp.best_fa, min_fa);
+  argmin3(ov_face_b, bp.best_fb, min_fb);
   float min_face = fminf(min_fa, min_fb);
-  bool use_edge = min_e < min_face * F(0.95) - F(1e-4);
-  bool use_face_b = !use_edge && (min_fb < min_fa * F(0.95) - F(1e-4));
-  bool use_face_a = !use_edge && !use_face_b;
+  bp.use_edge = min_e < min_face * F(0.95) - F(1e-4);
+  bp.use_face_b = !bp.use_edge && (min_fb < min_fa * F(0.95) - F(1e-4));
+  bp.use_face_a = !bp.use_edge && !bp.use_face_b;
+  return bp;
+}
+
+__device__ void box_box(V3 pos_a, Q4 quat_a, V3 h_a, V3 pos_b, Q4 quat_b, V3 h_b,
+                        Cand out[NCAND]) {
+  const BoxPair bp = box_pair(pos_a, quat_a, h_a, pos_b, quat_b, h_b);
+  const M3 &ra = bp.ra, &rb = bp.rb, &r = bp.r;
+  const V3& t = bp.t;
 
   // reference face on A
-  float sign_a = sign_nz(vcomp(t, best_fa));
+  float sign_a = sign_nz(vcomp(t, bp.best_fa));
   V3 pts[4];
   float deps[4];
-  face_candidates(h_a, h_b, r, t, best_fa, sign_a, pts, deps);
-  V3 n_fa_w = -(mcol_dyn(ra, best_fa) * sign_a);
+  face_candidates(h_a, h_b, r, t, bp.best_fa, sign_a, pts, deps);
+  V3 n_fa_w = -(mcol_dyn(ra, bp.best_fa) * sign_a);
 #pragma unroll
-  for (int v = 0; v < 4; ++v) out[v] = {pos_a + mvec(ra, pts[v]), n_fa_w, deps[v], use_face_a};
+  for (int v = 0; v < 4; ++v)
+    out[v] = {pos_a + mvec(ra, pts[v]), n_fa_w, deps[v], bp.use_face_a};
 
   // reference face on B (roles swapped)
   M3 r_t = mT(r);
   V3 t2 = -mvec(r_t, t);
-  float sign_b = sign_nz(vcomp(t2, best_fb));
-  face_candidates(h_b, h_a, r_t, t2, best_fb, sign_b, pts, deps);
-  V3 n_fb_w = mcol_dyn(rb, best_fb) * sign_b;
+  float sign_b = sign_nz(vcomp(t2, bp.best_fb));
+  face_candidates(h_b, h_a, r_t, t2, bp.best_fb, sign_b, pts, deps);
+  V3 n_fb_w = mcol_dyn(rb, bp.best_fb) * sign_b;
 #pragma unroll
-  for (int v = 0; v < 4; ++v) out[4 + v] = {pos_b + mvec(rb, pts[v]), n_fb_w, deps[v], use_face_b};
+  for (int v = 0; v < 4; ++v)
+    out[4 + v] = {pos_b + mvec(rb, pts[v]), n_fb_w, deps[v], bp.use_face_b};
 
   // edge-edge
-  axis_e = axis_e * sign_nz(dot(axis_e, t));
+  V3 axis_e = bp.axis_e * sign_nz(dot(bp.axis_e, t));
   float pens[2];
-  edge_candidate(h_a, h_b, r, t, bi, bj, axis_e, pts, pens);
+  edge_candidate(h_a, h_b, r, t, bp.bi, bp.bj, axis_e, pts, pens);
   V3 n_e_w = -mvec(ra, axis_e);
 #pragma unroll
-  for (int v = 0; v < 2; ++v) out[8 + v] = {pos_a + mvec(ra, pts[v]), n_e_w, min_e - pens[v], use_edge};
+  for (int v = 0; v < 2; ++v)
+    out[8 + v] = {pos_a + mvec(ra, pts[v]), n_e_w, bp.min_e - pens[v], bp.use_edge};
 
 #pragma unroll
-  for (int s = 0; s < NCAND; ++s) out[s].v = out[s].v && (out[s].d > 0.f) && !separated;
+  for (int s = 0; s < NCAND; ++s) out[s].v = out[s].v && (out[s].d > 0.f) && !bp.separated;
+}
+
+// Candidate 0 of box_box (the first vertex of the face-A reference) from
+// the frames ra, r, t and the face-A axis, by box_box's operations.
+__device__ __forceinline__ Cand box_face_a0(V3 pos_a, V3 h_a, V3 h_b, const M3& ra, const M3& r,
+                                            V3 t, int best_fa) {
+  float sign_a = sign_nz(vcomp(t, best_fa));
+  V3 pts[1];
+  float deps[1];
+  face_candidates<1>(h_a, h_b, r, t, best_fa, sign_a, pts, deps);
+  return {pos_a + mvec(ra, pts[0]), -(mcol_dyn(ra, best_fa) * sign_a), deps[0], false};
+}
+
+// Candidate 0 of box_box alone: the frames and the face-A overlaps only.
+__device__ __forceinline__ Cand box_box_cand0(V3 pos_a, Q4 quat_a, V3 h_a, V3 pos_b, Q4 quat_b,
+                                              V3 h_b) {
+  M3 ra = q_to_mat(quat_a);
+  M3 rb = q_to_mat(quat_b);
+  M3 r = mtm(ra, rb);
+  V3 t = mtvec(ra, pos_b - pos_a);
+  M3 absr = mabs(r, F(1e-7));
+  V3 ov_face_a = h_a + mvec(absr, h_b) - vabs(t);
+  int best_fa;
+  float min_fa;
+  argmin3(ov_face_a, best_fa, min_fa);
+  return box_face_a0(pos_a, h_a, h_b, ra, r, t, best_fa);
 }
 
 // ---------------------------------------------------------------------------
@@ -489,6 +544,167 @@ __device__ __forceinline__ void select_top_k(const Cand cands[NCAND], bool pair_
     for (int c = 0; c < NCAND; ++c)
       if (bidx == c) scores[c] = -INFINITY;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The fleet SAT's per-pair parts (planar_staged.cu): select_top_k's valid
+// entries with the candidates streamed, and candidate 0 alone, which every
+// entry that select_top_k leaves without a valid candidate repeats.
+// ---------------------------------------------------------------------------
+
+// The K deepest valid candidates of a pair-valid pair, kept as they are
+// pushed in index order: select_top_k's first-max walk takes the valid
+// candidates by depth, strictly greater first, so on a tie the lower index
+// stays ahead. A valid candidate's depth is > 0, so an empty entry's -inf
+// never wins. Entries left empty are select_top_k's repeats of candidate 0.
+struct Top4 {
+  Cand c[K];  // deepest first; d = -inf where empty
+  int id[K];
+  Cand c0;    // candidate 0, which an empty entry repeats
+};
+
+__device__ __forceinline__ void top4_init(Top4& t) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    t.c[k] = invalid_cand();
+    t.c[k].d = -INFINITY;
+    t.id[k] = 0;
+  }
+}
+
+__device__ __forceinline__ void top4_push(Top4& t, int id, const Cand& c) {
+  if (!c.v) return;
+#pragma unroll
+  for (int j = K - 1; j > 0; --j) {
+    if (c.d > t.c[j - 1].d) {  // c goes above entry j - 1, which moves down
+      t.c[j] = t.c[j - 1];
+      t.id[j] = t.id[j - 1];
+    } else if (c.d > t.c[j].d) {
+      t.c[j] = c;
+      t.id[j] = id;
+    }
+  }
+  if (c.d > t.c[0].d) {
+    t.c[0] = c;
+    t.id[0] = id;
+  }
+}
+
+// box_box's valid candidates into top, and its candidate 0: only the
+// reference in use (face A, face B or the edge pair) can have valid
+// candidates, so only its candidates are made, by box_box's operations on
+// the same operands.
+__device__ __forceinline__ void box_box_top4(V3 pos_a, Q4 quat_a, V3 h_a, V3 pos_b, Q4 quat_b,
+                                             V3 h_b, Top4& top) {
+  const BoxPair bp = box_pair(pos_a, quat_a, h_a, pos_b, quat_b, h_b);
+  top.c0 = box_face_a0(pos_a, h_a, h_b, bp.ra, bp.r, bp.t, bp.best_fa);
+  if (bp.separated) return;
+  V3 pts[4];
+  float deps[4];
+  if (bp.use_edge) {
+    V3 axis_e = bp.axis_e * sign_nz(dot(bp.axis_e, bp.t));
+    edge_candidate(h_a, h_b, bp.r, bp.t, bp.bi, bp.bj, axis_e, pts, deps);
+    V3 n_e_w = -mvec(bp.ra, axis_e);
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const float d = bp.min_e - deps[v];
+      top4_push(top, 8 + v, {pos_a + mvec(bp.ra, pts[v]), n_e_w, d, d > 0.f});
+    }
+    return;
+  }
+  // the reference face: A, or B with the roles swapped
+  const bool fb = bp.use_face_b;
+  const M3 r_t = mT(bp.r);
+  const V3 t2 = -mvec(r_t, bp.t);
+  M3 r_inc, r_ref;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      r_inc.m[i][j] = fb ? r_t.m[i][j] : bp.r.m[i][j];
+      r_ref.m[i][j] = fb ? bp.rb.m[i][j] : bp.ra.m[i][j];
+    }
+  const V3 t_inc = vsel(fb, t2, bp.t);
+  const int best = fb ? bp.best_fb : bp.best_fa;
+  const float sign = sign_nz(vcomp(t_inc, best));
+  face_candidates(vsel(fb, h_b, h_a), vsel(fb, h_a, h_b), r_inc, t_inc, best, sign, pts, deps);
+  const V3 n_face = mcol_dyn(r_ref, best) * sign;
+  const V3 n = vsel(fb, n_face, -n_face);
+  const V3 pos = vsel(fb, pos_b, pos_a);
+#pragma unroll
+  for (int v = 0; v < 4; ++v)
+    top4_push(top, (fb ? 4 : 0) + v, {pos + mvec(r_ref, pts[v]), n, deps[v], deps[v] > 0.f});
+}
+
+// pair_candidates + select_top_k for a pair-valid pair, one candidate at a
+// time: top's valid entries and candidate 0.
+template <bool BOX_ONLY>
+__device__ void pair_top4(const float* ga, const float* gb, Top4& top) {
+  top4_init(top);
+  V3 pos_a = {ga[0], ga[1], ga[2]}, pos_b = {gb[0], gb[1], gb[2]};
+  Q4 quat_a = {ga[3], ga[4], ga[5], ga[6]}, quat_b = {gb[3], gb[4], gb[5], gb[6]};
+  V3 size_a = {ga[8], ga[9], ga[10]}, size_b = {gb[8], gb[9], gb[10]};
+  if (BOX_ONLY) {
+    box_box_top4(pos_a, quat_a, size_a, pos_b, quat_b, size_b, top);
+    return;
+  }
+  int shape_a = (int)ga[7], shape_b = (int)gb[7];
+  V3 cap_a = {size_a.x, shape_a == SHAPE_SPHERE ? 0.f : size_a.y, size_a.z};
+  V3 cap_b = {size_b.x, shape_b == SHAPE_SPHERE ? 0.f : size_b.y, size_b.z};
+  bool box_a = shape_a == SHAPE_BOX, box_b = shape_b == SHAPE_BOX;
+  if (box_a && box_b) {
+    box_box_top4(pos_a, quat_a, size_a, pos_b, quat_b, size_b, top);
+  } else if (!box_a && !box_b) {
+    top.c0 = capsule_capsule(pos_a, quat_a, cap_a, pos_b, quat_b, cap_b);
+    top4_push(top, 0, top.c0);
+  } else {  // candidates 5.. are invalid
+    Cand probes[5];
+    if (!box_a) {
+      capsule_box(pos_a, quat_a, cap_a, pos_b, quat_b, size_b, probes);
+    } else {
+      capsule_box(pos_b, quat_b, cap_b, pos_a, quat_a, size_a, probes);
+#pragma unroll
+      for (int s = 0; s < 5; ++s) probes[s].n = -probes[s].n;
+    }
+    top.c0 = probes[0];
+#pragma unroll
+    for (int s = 0; s < 5; ++s) top4_push(top, s, probes[s]);
+  }
+}
+
+// Entry k of select_top_k's result: a kept candidate, or candidate 0 with
+// id 0, not valid.
+__device__ __forceinline__ Cand top4_entry(const Top4& t, int k, int& id) {
+  const bool kept = t.c[k].d > -INFINITY;
+  id = kept ? t.id[k] : 0;
+  Cand c = kept ? t.c[k] : t.c0;
+  c.v = kept && isfinite(c.d);
+  return c;
+}
+
+// Candidate 0 of pair_candidates (its validity aside): what select_top_k
+// gives in each entry that has no valid candidate.
+template <bool BOX_ONLY>
+__device__ Cand pair_cand0(const float* ga, const float* gb) {
+  V3 pos_a = {ga[0], ga[1], ga[2]}, pos_b = {gb[0], gb[1], gb[2]};
+  Q4 quat_a = {ga[3], ga[4], ga[5], ga[6]}, quat_b = {gb[3], gb[4], gb[5], gb[6]};
+  V3 size_a = {ga[8], ga[9], ga[10]}, size_b = {gb[8], gb[9], gb[10]};
+  if (BOX_ONLY) return box_box_cand0(pos_a, quat_a, size_a, pos_b, quat_b, size_b);
+  int shape_a = (int)ga[7], shape_b = (int)gb[7];
+  V3 cap_a = {size_a.x, shape_a == SHAPE_SPHERE ? 0.f : size_a.y, size_a.z};
+  V3 cap_b = {size_b.x, shape_b == SHAPE_SPHERE ? 0.f : size_b.y, size_b.z};
+  bool box_a = shape_a == SHAPE_BOX, box_b = shape_b == SHAPE_BOX;
+  if (box_a && box_b) return box_box_cand0(pos_a, quat_a, size_a, pos_b, quat_b, size_b);
+  if (!box_a && !box_b) return capsule_capsule(pos_a, quat_a, cap_a, pos_b, quat_b, cap_b);
+  V3 a0, a1;  // capsule_box's first probe: the capsule's first end
+  if (!box_a) {
+    segment_of_capsule(pos_a, quat_a, cap_a, a0, a1);
+    return sphere_box(a0, cap_a.x, pos_b, quat_b, size_b);
+  }
+  segment_of_capsule(pos_b, quat_b, cap_b, a0, a1);
+  Cand c = sphere_box(a0, cap_b.x, pos_a, quat_a, size_a);
+  c.n = -c.n;
+  return c;
 }
 
 // ---------------------------------------------------------------------------

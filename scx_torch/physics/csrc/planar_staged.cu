@@ -5,14 +5,32 @@
 // 10 contact candidates of the pair's shape kinds, the first-max top-4
 // select by depth and the combined friction / restitution / trigger flag.
 //   in : ga, gb [E,14,P] f32 gathered body rows, pvf [E,P] f32
-//   out: fk [8][E,4,P] f32 (point xyz, normal xyz, depth, valid),
-//        cand [E,4,P] i32, fp [3][E,P] f32 (friction, restitution, trigger)
-// One thread per (env, pair slot), no shared memory: the planes are read
-// and written with the pair slot as the fastest index, so a warp's loads
-// and stores are contiguous. A slot that is not a valid pair still writes
-// what the reference writes (valid 0, the candidate ids of the first-max
-// walk over -inf scores), since the cache store reads them. Bound by the
-// branchy per-pair scalar code, not by its ~36 MB at 1024 x 128 pairs.
+//   out: one buffer of 39 words per slot, plane after plane: fk [8][E,4,P]
+//        f32 (point xyz, normal xyz, depth, valid), cand [E,4,P] i32,
+//        fp [3][E,P] f32 (friction, restitution, trigger)
+// What it must move bounds it: every slot writes its 39 words and reads 13
+// of the 14 gathered rows of each body (all 14 with kinds other than box),
+// since a slot that is not pair-valid still writes candidate 0's point,
+// normal and depth (valid 0, id 0) in all four entries, and its fp: ~34.6
+// MB at 1024 x 128, 0.0103 ms at 3.35 TB/s. Only ~8% of the pile fleet's
+// slots are pair-valid, and only those need the narrowphase. A CTA of 4
+// warps takes SAT_SLOTS consecutive slots (envs may straddle CTAs; 512 CTAs
+// at 1024 x 128, one wave at 4 CTAs per SM):
+//   1. it orders its slots with warp ballots (block_rank): the pair-valid
+//      ones ascending, then the rest;
+//   2. the pair-valid slots go one per thread to the last warps (as many as
+//      they fill) and run pair_top4: box_pair's overlaps, then only the
+//      reference in use, whose candidates are the only ones that can be
+//      valid, pushed in index order into a running top-4 (4 entries in
+//      registers, not 10 candidates), and candidate 0 from the same frames.
+//      At the same time the other warps give each remaining slot candidate
+//      0 alone (pair_cand0). Each writes its own slots' 39 words into a
+//      [39][SAT_SLOTS] stage in shared memory, so one barrier ends both;
+//   3. the stage goes out row by row, 4 adjacent slots of one row in one
+//      16-byte store (P a multiple of 4; else one word per store).
+// Timed on the card and dropped (PERF.md): 128 or 64 slots per CTA, CTAs
+// that take tiles in turn, an L1 or L2 prefetch of the rows, the pair-valid
+// slots after the rest on the same warps, 6 or 8 CTAs per SM (spills).
 //
 // planar_solve_kernel replaces scx/physics/planar.py::_solve_fleet_pallas
 // (body _solve_iter_core -> _iter_loop): `iterations` relaxed-Jacobi
@@ -48,50 +66,149 @@
 namespace {
 
 constexpr int SAT_THREADS = 128;
+constexpr int SAT_SLOTS = 256;            // pair slots per CTA, a multiple of 4
+constexpr int SAT_MIN_CTAS = 4;           // resident per SM: at most 128 registers a thread
+constexpr int SAT_WORDS = 8 * K + K + 3;  // output words per slot
+constexpr int SAT_CAND = 8 * K;           // stage rows: fk plane f entry k at f K + k, then
+constexpr int SAT_FP = 9 * K;             //   cand k at SAT_CAND + k, fp j at SAT_FP + j
+constexpr int SAT_QUADS = SAT_SLOTS / 4;  // 16-byte stores per stage row
+static_assert(SAT_SLOTS % 4 == 0 && SAT_THREADS % SAT_QUADS == 0, "a thread stores one quad");
+
+// shared memory of the SAT kernel, in 4-byte words: the stage, the slots
+// in work order, a block_rank scratch
+constexpr int SAT_SMEM_WORDS = SAT_WORDS * SAT_SLOTS + SAT_SLOTS + SAT_THREADS / 32;
+
+// A slot's place: env e and pair p. Slots of a CTA are numbered from its
+// first, t0 = e0 np + p0, without a 64-bit division per slot.
+struct SatSlot {
+  long long e;
+  int p;
+};
+__device__ __forceinline__ SatSlot sat_slot(SatSlot first, int s, int np) {
+  const int u = first.p + s, de = u / np;
+  return {first.e + de, u - de * np};
+}
+
+// The 14 gathered rows of slot q of ga or gb.
+__device__ __forceinline__ void sat_load(const float* g, SatSlot q, int np, float r[SAT_ROWS]) {
+  const float* col = g + q.e * SAT_ROWS * np + q.p;
+#pragma unroll
+  for (int i = 0; i < SAT_ROWS; ++i) r[i] = ldg(col + (size_t)i * np);
+}
+
+// Entry k of stage slot s.
+__device__ __forceinline__ void sat_put(float* stage, int s, int k, const Cand& c, int id) {
+  const float w[8] = {c.p.x, c.p.y, c.p.z, c.n.x, c.n.y, c.n.z, c.d, c.v ? 1.f : 0.f};
+#pragma unroll
+  for (int f = 0; f < 8; ++f) stage[(f * K + k) * SAT_SLOTS + s] = w[f];
+  ((int*)stage)[(SAT_CAND + k) * SAT_SLOTS + s] = id;
+}
+
+// Word index in the output buffer of stage row w at slot q (flat index t):
+// the fk planes and cand are [E,K,P] each (plane w / K), the fp planes
+// [E,P] (plane w).
+__device__ __forceinline__ size_t sat_out_index(int w, SatSlot q, long long t, long long total,
+                                                int np) {
+  if (w >= SAT_FP) return (size_t)w * total + t;
+  return (size_t)(w / K) * K * total + ((size_t)q.e * K + w % K) * np + q.p;
+}
+
+// fp of slot s into the stage.
+__device__ __forceinline__ void sat_put_fp(float* stage, int s, const float* ga, const float* gb) {
+  stage[(SAT_FP + 0) * SAT_SLOTS + s] = ga[11] * gb[11];
+  stage[(SAT_FP + 1) * SAT_SLOTS + s] = ga[12] * gb[12];
+  stage[(SAT_FP + 2) * SAT_SLOTS + s] = (ga[13] > 0.f || gb[13] > 0.f) ? 1.f : 0.f;
+}
 
 template <bool BOX_ONLY>
-__global__ void planar_sat_kernel(const float* __restrict__ ga_g, const float* __restrict__ gb_g,
-                                  const float* __restrict__ pvf, float* __restrict__ fk,
-                                  int* __restrict__ cand_out, float* __restrict__ fp, int envs,
-                                  int np) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(SAT_THREADS, SAT_MIN_CTAS) planar_sat_kernel(
+    const float* __restrict__ ga_g, const float* __restrict__ gb_g,
+    const float* __restrict__ pvf, unsigned* __restrict__ out, int envs, int np) {
+  extern __shared__ float smem_words[];
+  float* stage = smem_words;                              // [SAT_WORDS][SAT_SLOTS]
+  int* order = (int*)smem_words + SAT_WORDS * SAT_SLOTS;  // [SAT_SLOTS]
+  int* scratch = order + SAT_SLOTS;
+  const int tid = threadIdx.x, warp = tid / 32;
   const long long total = (long long)envs * np;
-  if (t >= total) return;
-  const int e = (int)(t / np);
-  const int p = (int)(t - (long long)e * np);
-  float ga[SAT_ROWS], gb[SAT_ROWS];
-#pragma unroll
-  for (int r = 0; r < SAT_ROWS; ++r) {
-    ga[r] = ga_g[((size_t)e * SAT_ROWS + r) * np + p];
-    gb[r] = gb_g[((size_t)e * SAT_ROWS + r) * np + p];
-  }
-  const bool pair_valid = pvf[t] > 0.5f;
-  Cand cands[NCAND];
-  pair_candidates<BOX_ONLY>(ga, gb, cands);
-  V3 point[K], nrm[K];
-  float depth[K];
-  bool vraw[K];
-  int cid[K];
-  select_top_k(cands, pair_valid, point, nrm, depth, vraw, cid);
+  const long long t0 = (long long)blockIdx.x * SAT_SLOTS;
+  const int ns = (int)min((long long)SAT_SLOTS, total - t0);
+  const SatSlot first = {t0 / np, (int)(t0 % np)};
 
-  const size_t plane = (size_t)total * K;  // one [E,K,P] group
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const size_t o = ((size_t)e * K + k) * np + p;
-    fk[0 * plane + o] = point[k].x;
-    fk[1 * plane + o] = point[k].y;
-    fk[2 * plane + o] = point[k].z;
-    fk[3 * plane + o] = nrm[k].x;
-    fk[4 * plane + o] = nrm[k].y;
-    fk[5 * plane + o] = nrm[k].z;
-    fk[6 * plane + o] = depth[k];
-    fk[7 * plane + o] = vraw[k] ? 1.f : 0.f;
-    cand_out[o] = cid[k];
+  // ---- 1. the slots in work order: pair-valid ones, then the rest --------
+  int m = 0;
+  for (int base = 0; base < SAT_SLOTS; base += SAT_THREADS) {
+    const int s = base + tid;
+    const bool pv = s < ns && ldg(pvf + t0 + s) > 0.5f;
+    int count;
+    const int rank = block_rank(pv, scratch, count);
+    if (pv) order[m + rank] = s;
+    else if (s < ns) order[SAT_SLOTS - 1 - (s - m - rank)] = s;  // from the end
+    m += count;
   }
-  fp[0 * total + t] = ga[11] * gb[11];
-  fp[1 * total + t] = ga[12] * gb[12];
-  fp[2 * total + t] = (ga[13] > 0.f || gb[13] > 0.f) ? 1.f : 0.f;
+  __syncthreads();  // the order is written
+
+  // ---- 2. the pair-valid slots on the last warps, the rest on the others -
+  // Both write all K entries and fp of their own slots, so they run at once:
+  // a pair-valid slot its select (pair_top4), another candidate 0 alone.
+  // With more than 3 warps' worth of pair-valid slots, every warp takes both.
+  constexpr int NW = SAT_THREADS / 32;
+  const int bw = min((m + 31) / 32, NW), aw = NW - bw;  // aw 0: every warp does both
+  if (warp >= aw) {
+    for (int i = tid - 32 * aw; i < m; i += 32 * bw) {
+      const int s = order[i];
+      const SatSlot q = sat_slot(first, s, np);
+      float ga[SAT_ROWS], gb[SAT_ROWS];
+      sat_load(ga_g, q, np, ga);
+      sat_load(gb_g, q, np, gb);
+      sat_put_fp(stage, s, ga, gb);
+      Top4 top;
+      pair_top4<BOX_ONLY>(ga, gb, top);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        int id;
+        const Cand c = top4_entry(top, k, id);
+        sat_put(stage, s, k, c, id);
+      }
+    }
+  }
+  if (warp < aw || aw == 0) {
+    const int nthr = aw ? 32 * aw : SAT_THREADS;
+    for (int j = tid; j < ns - m; j += nthr) {
+      const int s = order[SAT_SLOTS - 1 - j];
+      const SatSlot q = sat_slot(first, s, np);
+      float ga[SAT_ROWS], gb[SAT_ROWS];
+      sat_load(ga_g, q, np, ga);
+      sat_load(gb_g, q, np, gb);
+      sat_put_fp(stage, s, ga, gb);
+      Cand c0 = pair_cand0<BOX_ONLY>(ga, gb);
+      c0.v = false;
+#pragma unroll
+      for (int k = 0; k < K; ++k) sat_put(stage, s, k, c0, 0);
+    }
+  }
+  __syncthreads();  // the stage is whole
+
+  // ---- 3. out, row by row ------------------------------------------------
+  const unsigned* words = (const unsigned*)stage;
+  if (np % 4 == 0) {  // then ns and t0 are too: 4 slots of one env per store
+    const int s = 4 * (tid % SAT_QUADS);
+    if (s >= ns) return;
+    const SatSlot q = sat_slot(first, s, np);
+    for (int w = tid / SAT_QUADS; w < SAT_WORDS; w += SAT_THREADS / SAT_QUADS) {
+      const uint4 v = *(const uint4*)(words + w * SAT_SLOTS + s);
+      *(uint4*)(out + sat_out_index(w, q, t0 + s, total, np)) = v;
+    }
+  } else {
+    for (int s = tid; s < ns; s += SAT_THREADS) {
+      const SatSlot q = sat_slot(first, s, np);
+#pragma unroll 4
+      for (int w = 0; w < SAT_WORDS; ++w)
+        out[sat_out_index(w, q, t0 + s, total, np)] = words[w * SAT_SLOTS + s];
+    }
+  }
 }
+
+size_t sat_smem_bytes() { return sizeof(float) * (size_t)SAT_SMEM_WORDS; }
 
 constexpr int SOLVE_THREADS = 128;
 constexpr int SOLVE_MIN_CTAS = 4;  // resident per SM: at most 128 registers a thread
@@ -269,16 +386,31 @@ extern "C" {
 // Python side to compare with its own.
 void scx_planar_layout(int* out) { planar_layout(out); }
 
-int scx_planar_sat(const void* ga, const void* gb, const void* pvf, void* fk, void* cand,
-                   void* fp, int e, int p, int box_only, void* stream) {
+// out: the kernel's 39 E P words (fk, cand, fp planes, in that order).
+// Launches on `device`, made current for the launch if it is not.
+int scx_planar_sat(const void* ga, const void* gb, const void* pvf, void* out, int e, int p,
+                   int box_only, int device, void* stream) {
   long long total = (long long)e * p;
   if (total == 0) return 0;
-  unsigned blocks = (unsigned)((total + SAT_THREADS - 1) / SAT_THREADS);
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  unsigned blocks = (unsigned)((total + SAT_SLOTS - 1) / SAT_SLOTS);
   auto kernel = box_only ? planar_sat_kernel<true> : planar_sat_kernel<false>;
-  kernel<<<blocks, SAT_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)ga, (const float*)gb, (const float*)pvf, (float*)fk, (int*)cand, (float*)fp,
-      e, p);
-  return (int)cudaGetLastError();
+  kernel<<<blocks, SAT_THREADS, sat_smem_bytes(), (cudaStream_t)stream>>>(
+      (const float*)ga, (const float*)gb, (const float*)pvf, (unsigned*)out, e, p);
+  err = cudaGetLastError();
+  if (current != device) cudaSetDevice(current);
+  return (int)err;
+}
+
+// CTAs of the SAT kernel that one SM holds at once, and its shared memory.
+int scx_planar_sat_occupancy(int box_only, int* ctas, int* smem) {
+  *smem = (int)sat_smem_bytes();
+  auto kernel = box_only ? planar_sat_kernel<true> : planar_sat_kernel<false>;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel, SAT_THREADS,
+                                                            sat_smem_bytes());
 }
 
 long long scx_planar_solve_smem_bytes(int n, int p) { return (long long)solve_smem_bytes(n, p); }

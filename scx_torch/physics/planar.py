@@ -1224,36 +1224,37 @@ SAT_KERNEL_LAUNCHES = 0    # launches of the CUDA fleet SAT kernel, never reset 
 SOLVE_KERNEL_LAUNCHES = 0  # launches of the CUDA fleet solve kernel
 
 
+_SAT_WORDS = 9 * _K + 3  # the SAT kernel's output words per slot: fk (8 K), cand (K), fp (3)
+
+
 def sat_fleet(ga, gb, pvf, kinds=_ALL_KINDS):
     """The fleet SAT narrowphase (see sat_reference for shapes; ga, gb are
     exactly [E, 14, P]). CPU tensors take sat_reference; CUDA tensors launch
     the hand-written kernel of csrc/planar_staged.cu on the current stream,
-    or raise."""
+    or raise. The kernel's outputs are views of one buffer."""
     global SAT_KERNEL_LAUNCHES
-    if ga.device.type == "cpu":
+    dev = ga.device
+    if dev.type == "cpu":
         return sat_reference(ga, gb, pvf, kinds)
-    if ga.device.type != "cuda":
-        raise ValueError(f"sat_fleet: unsupported device {ga.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"sat_fleet: unsupported device {dev}")
     e, _, p = ga.shape
     f32 = torch.float32
     _check_operands("sat_fleet", (
         (ga, (e, _SAT_ROWS, p), f32), (gb, (e, _SAT_ROWS, p), f32), (pvf, (e, p), f32),
     ))
     check_kernel_layout()
-    with torch.cuda.device(ga.device):  # the C side launches on the current device
-        fk = torch.empty((8, e, _K, p), dtype=f32, device=ga.device)
-        cand = torch.empty((e, _K, p), dtype=torch.int32, device=ga.device)
-        fp = torch.empty((3, e, p), dtype=f32, device=ga.device)
-        err = _build.load().scx_planar_sat(
-            ga.data_ptr(), gb.data_ptr(), pvf.data_ptr(),
-            fk.data_ptr(), cand.data_ptr(), fp.data_ptr(),
-            e, p, int(tuple(kinds) == ("box",)),
-            torch.cuda.current_stream(ga.device).cuda_stream,
-        )
+    out = torch.empty(_SAT_WORDS * e * p, dtype=f32, device=dev)
+    err = _build.load().scx_planar_sat(
+        ga.data_ptr(), gb.data_ptr(), pvf.data_ptr(), out.data_ptr(), e, p,
+        int(tuple(kinds) == ("box",)), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
     if err != 0:
         raise RuntimeError(f"SAT kernel launch failed: CUDA error {err}")
     SAT_KERNEL_LAUNCHES += 1
-    return (*fk.unbind(0), cand, *fp.unbind(0))
+    n = e * _K * p
+    *fk, cand = out[:9 * n].view(9, e, _K, p).unbind(0)
+    return (*fk, cand.view(torch.int32), *out[9 * n:].view(3, e, p).unbind(0))
 
 
 def _unpack_jac(jac):

@@ -6,7 +6,9 @@
     of the pile fleet (1024 envs x 64 bodies, max_pairs 128, box-only:
     chip_smoke.py's phase 3) and of the mixed 64 x 24 fleet;
   * planar_sat and planar_solve on the staged step's operands after 3
-    warm staged steps of the pile fleet (phase 4b);
+    warm staged steps of the pile fleet (phase 4b); planar_sat also after
+    240 staged steps of it (the settled pile: more pair-valid slots per
+    env) and after 3 of the mixed 64 x 24 fleet;
   * with --rl, planar_middle on the operands of one step of each RL fleet
     (rlenv.FLEETS: 4096 envs x capacity 160 on the tile path, 1024 x 512
     on the GLB path): its third step's, taken as the step makes them.
@@ -115,9 +117,18 @@ def main(argv=None) -> int:
         *warm(fleet.build_pile_fleet(ENVS, BODIES, dev), params, 3, pp.step_planar_staged),
         params)
     report("planar_sat", "pile 1024 x 64", lambda: pp.sat_fleet(*sat_ops, params.shape_kinds),
-           "planar_sat_kernel")
+           "planar_sat_kernel", pair_valid_share=(sat_ops[2] > 0.5).float().mean().item())
     report("planar_solve", "pile 1024 x 64", lambda: pp.solve_fleet(*solve_ops, 6),
            "planar_solve_kernel")
+    for cell, b, p, steps in (
+            ("pile 1024 x 64 after 240 steps", fleet.build_pile_fleet(ENVS, BODIES, dev),
+             params, 240),
+            ("mixed 64 x 24", fleet.build_mixed_fleet(64, 24, 5, dev), mixed, 3)):
+        sat_ops = staged_operands(*warm(b, p, steps, pp.step_planar_staged), p)[0]
+        pvf = sat_ops[2] > 0.5
+        report("planar_sat", cell, lambda: pp.sat_fleet(*sat_ops, p.shape_kinds),
+               "planar_sat_kernel", pair_valid_share=pvf.float().mean().item(),
+               max_pair_valid_per_env=int(pvf.sum(-1).max()))
     del ops, sat_ops, solve_ops
     if args.rl:
         for name in ("tiles", "glb_clusters"):

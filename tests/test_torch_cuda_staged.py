@@ -4,10 +4,11 @@ versions, on the card.
 Marked `cuda`: these skip where no GPU is present. On a machine with one
 (and without JAX), run them with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_staged.py
-The contracts are those of tests/test_torch_planar_staged.py: validity may
-differ only at graze depth (|depth| < 1e-5), floats within 5e-6 where both
-are valid, candidate ids, friction, restitution and trigger exact; the
-solve within 2e-5."""
+The SAT kernel equals its plain version at every slot, pair-valid or not:
+validity, candidate ids, friction, restitution and trigger bit for bit,
+the floats within 5e-6 (in practice equal), as in
+tests/test_torch_staged_emulated.py; the solve within 2e-5 (the contract
+of tests/test_torch_planar_staged.py)."""
 
 from dataclasses import replace
 
@@ -56,26 +57,53 @@ def _warm(gpu, envs, bodies, pairs, kinds, triggers):
     return b, cache, params, ia, ib, pair_valid
 
 
-@pytest.mark.parametrize("envs,bodies,pairs,kinds,triggers", CASES)
-def test_sat_kernel_matches_plain(gpu, envs, bodies, pairs, kinds, triggers):
-    b, _, _, ia, ib, pair_valid = _warm(gpu, envs, bodies, pairs, kinds, triggers)
-    ga, gb, pvf = tp._sat_inputs(b, ia, ib, pair_valid)
+def _check_sat(ga, gb, pvf, kinds):
+    """sat_fleet (one launch) against sat_reference at every slot."""
     before = tp.SAT_KERNEL_LAUNCHES
     ker = [x.cpu() for x in tp.sat_fleet(ga, gb, pvf, kinds)]
     assert tp.SAT_KERNEL_LAUNCHES == before + 1
     ref = [x.cpu() for x in tp.sat_reference(ga, gb, pvf, kinds)]
-    flips = ker[7] != ref[7]
-    if flips.any():
-        assert ref[6].abs()[flips].max() < 1e-5
-    both = (ker[7] > 0.5) & (ref[7] > 0.5)
-    assert both.sum() > 0
-    assert torch.equal(ker[8][both], ref[8][both])
+    for i in (7, 8, 9, 10, 11):
+        assert torch.equal(ker[i], ref[i]), i
     for got, want in zip(ker[:7], ref[:7]):
-        torch.testing.assert_close(got[both], want[both], rtol=0, atol=5e-6)
-    for got, want in zip(ker[9:], ref[9:]):
-        assert torch.equal(got, want)
+        torch.testing.assert_close(got, want, rtol=0, atol=5e-6)
+    return ref
+
+
+@pytest.mark.parametrize("envs,bodies,pairs,kinds,triggers", CASES)
+def test_sat_kernel_matches_plain(gpu, envs, bodies, pairs, kinds, triggers):
+    b, _, _, ia, ib, pair_valid = _warm(gpu, envs, bodies, pairs, kinds, triggers)
+    ref = _check_sat(*tp._sat_inputs(b, ia, ib, pair_valid), kinds)
+    assert ref[7].sum() > 0
     if triggers:
         assert ref[11].sum() > 0
+
+
+def test_sat_kernel_matches_plain_on_the_pile(gpu):
+    """The main shape, 1024 x 64 at P = 128, after 3 warm steps and after
+    240, when the pile has settled (more pair-valid slots per env)."""
+    params = SolverParams(max_pairs=128, iterations=6, shape_kinds=("box",))
+    b = fleet.build_pile_fleet(1024, 64, gpu)
+    cache = tp.empty_planar_cache(1024, 128, device=gpu)
+    for steps in (3, 237):
+        for _ in range(steps):
+            b, cache, _ = tp.step_planar_staged(b, params, cache)
+        b1 = tp.planar_integrate_velocities(b, params.dt, params.gravity)
+        ia, ib, pair_valid, _ = tp.planar_broadphase(b1, 128)
+        ref = _check_sat(*tp._sat_inputs(b1, ia, ib, pair_valid), ("box",))
+        assert ref[7].sum() > 0 and not bool(pair_valid.all())
+
+
+@pytest.mark.parametrize("pairs", [128, 37])
+@pytest.mark.parametrize("case", torch_planar_emu.SAT_CASES)
+def test_sat_kernel_edge_cases(gpu, case, pairs):
+    """tests/test_torch_staged_emulated.py's cases: no pair-valid slot, all
+    pair-valid, fewer than 4 valid candidates, equal depths; box pairs
+    through both templates."""
+    ga, gb, pvf, kinds = torch_planar_emu.sat_case(case, pairs, gpu)
+    for k in {kinds, ALL_KINDS}:
+        ref = _check_sat(ga, gb, pvf, k)
+        torch_planar_emu.check_sat_case(case, pvf.cpu(), ref)
 
 
 @pytest.mark.parametrize("envs,bodies,pairs,kinds,triggers", CASES)

@@ -29,18 +29,14 @@ ALL_KINDS = ("box", "sphere", "capsule")
 _TAIL = r"""
 extern "C" void emu_layout(int* out) { planar_layout(out); }
 
-// the SAT kernel has no barrier: its threads run one after another
-extern "C" int emu_sat(const float* ga, const float* gb, const float* pvf, float* fk, int* cand,
-                       float* fp, int e, int p, int box_only) {
-  blockDim.x = SAT_THREADS;
+extern "C" int emu_sat(const float* ga, const float* gb, const float* pvf, unsigned* out, int e,
+                       int p, int box_only) {
   long long total = (long long)e * p;
-  for (long long b = 0; b * SAT_THREADS < total; ++b)
-    for (int t = 0; t < SAT_THREADS; ++t) {
-      blockIdx.x = (unsigned)b;
-      threadIdx.x = t;
-      if (box_only) planar_sat_kernel<true>(ga, gb, pvf, fk, cand, fp, e, p);
-      else planar_sat_kernel<false>(ga, gb, pvf, fk, cand, fp, e, p);
-    }
+  for (long long b = 0; b * SAT_SLOTS < total; ++b)
+    emu_block((int)b, SAT_THREADS, [&] {
+      if (box_only) planar_sat_kernel<true>(ga, gb, pvf, out, e, p);
+      else planar_sat_kernel<false>(ga, gb, pvf, out, e, p);
+    });
   return 0;
 }
 
@@ -59,7 +55,7 @@ extern "C" int emu_solve(const float* jac, const int* ia, const int* ib, const f
 def emulated(tmp_path_factory):
     so = torch_planar_emu.build(SRC, _TAIL, tmp_path_factory.mktemp("emu"))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    so.emu_sat.argtypes = [vp] * 6 + [i32] * 3
+    so.emu_sat.argtypes = [vp] * 4 + [i32] * 3
     so.emu_solve.argtypes = [vp] * 6 + [i32] * 4
     so.emu_layout.argtypes = [ctypes.POINTER(i32)]
     return so
@@ -90,6 +86,30 @@ def _warm_fleet(envs, bodies, pairs, kinds, triggers, steps=3):
     return b, cache, params, ia, ib, pair_valid
 
 
+def _emu_sat(so, ga, gb, pvf, kinds):
+    """The kernel source's 12 outputs, split from its one buffer as
+    planar.sat_fleet splits them."""
+    e, _, p = ga.shape
+    out = torch.empty(tp._SAT_WORDS * e * p)
+    ga, gb, pvf = (x.contiguous() for x in (ga, gb, pvf))
+    assert so.emu_sat(ga.data_ptr(), gb.data_ptr(), pvf.data_ptr(), out.data_ptr(), e, p,
+                      int(tuple(kinds) == ("box",))) == 0
+    n = e * 4 * p
+    *fk, cand = out[:9 * n].view(9, e, 4, p)
+    return (*fk, cand.view(torch.int32), *out[9 * n:].view(3, e, p))
+
+
+def _check_sat(got, ref):
+    """At every slot, pair-valid or not: validity, candidate ids, friction,
+    restitution and trigger equal; point, normal and depth within 5e-6 (the
+    same formulas in the same order, so in fact equal up to libm's
+    sqrt/division, which both sides round correctly)."""
+    for i in (7, 8, 9, 10, 11):
+        assert torch.equal(got[i], ref[i]), i
+    for g, r in zip(got[:7], ref[:7]):
+        torch.testing.assert_close(g, r, rtol=0, atol=5e-6)
+
+
 CASES = [
     (6, 24, 128, ALL_KINDS, False),
     (4, 24, 37, ALL_KINDS, True),
@@ -106,22 +126,27 @@ def test_sat_kernel_source_matches_reference(emulated, envs, bodies, pairs, kind
     up to libm's sqrt/division, which both sides round correctly)."""
     b, _, _, ia, ib, pair_valid = _warm_fleet(envs, bodies, pairs, kinds, triggers)
     ga, gb, pvf = (x.contiguous() for x in tp._sat_inputs(b, ia, ib, pair_valid))
-    fk = torch.empty((8, envs, 4, pairs))
-    cand = torch.empty((envs, 4, pairs), dtype=torch.int32)
-    fp = torch.empty((3, envs, pairs))
-    rc = emulated.emu_sat(ga.data_ptr(), gb.data_ptr(), pvf.data_ptr(), fk.data_ptr(),
-                          cand.data_ptr(), fp.data_ptr(), envs, pairs,
-                          int(kinds == ("box",)))
-    assert rc == 0
     ref = tp.sat_reference(ga, gb, pvf, kinds)
-    assert torch.equal(fk[7], ref[7]) and ref[7].sum() > 0
-    assert torch.equal(cand, ref[8])
-    for got, want in zip(fk[:7], ref[:7]):
-        torch.testing.assert_close(got, want, rtol=0, atol=5e-6)
-    for got, want in zip(fp, ref[9:]):
-        assert torch.equal(got, want)
+    assert ref[7].sum() > 0
+    _check_sat(_emu_sat(emulated, ga, gb, pvf, kinds), ref)
     if triggers:
         assert ref[11].sum() > 0
+
+
+@pytest.mark.parametrize("pairs", [128, 37])
+@pytest.mark.parametrize("case", torch_planar_emu.SAT_CASES)
+def test_sat_kernel_source_edge_cases(emulated, case, pairs):
+    """Slots that are not pair-valid (candidate 0 in every entry), envs
+    whose slots are all pair-valid, pairs with fewer than 4 valid candidates
+    (the rest repeat candidate 0 with id 0) and equal depths (the lower
+    candidate first): equal to sat_reference at every slot, through the
+    kernel's 16-byte stores (P = 128) and its one-word stores (P = 37); box
+    pairs through both of its templates."""
+    ga, gb, pvf, kinds = torch_planar_emu.sat_case(case, pairs)
+    for k in {kinds, ALL_KINDS}:
+        ref = tp.sat_reference(ga, gb, pvf, k)
+        torch_planar_emu.check_sat_case(case, pvf, ref)
+        _check_sat(_emu_sat(emulated, ga, gb, pvf, k), ref)
 
 
 @pytest.mark.parametrize("envs,bodies,pairs,kinds,triggers", CASES)
