@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: python3 chip_smoke.py
 
 Run from the root of the repository. It drives the port's main paths --
-the batched physics fleet step (1024 scenes x 64 bodies,
+the sandbox (the engine's main loop: streaming, traffic, physics, chase
+camera and render of one world at capacity 4096, 640x352), the batched
+physics fleet step (1024 scenes x 64 bodies,
 max_pairs=128, 6 solver iterations, box-only narrowphase), one rendered
 frame of the city chunk at 1280x720 (benchmarks/bench_city_720p.py's
 frame, ~78.6k triangles, 64x128 tiles, 256 cluster slots per tile,
@@ -91,12 +93,31 @@ fleet -- in phases and exits non-zero at the first failure:
      (taken from a real env.step in phase 8 by
      scx_torch.profile_physics.rl_middle_operands), each with its bound
      counted as phase 3 counts it (middle_bound). It runs after every rate, as
-     the profiler may leave a cost per launch behind it.
+     the profiler may leave a cost per launch behind it;
+ 11. the sandbox (run before phase 10, for that reason):
+     scx_torch.app.sandbox.Sandbox at its defaults (capacity 4096, a
+     640x352 frame through the cluster kernel, max_pairs 256, the
+     procedural city with traffic, mip-mapped textures), frames until
+     streaming is quiet (at most SANDBOX_SETTLE_FRAMES); a save, 4 frames
+     and a load into a new sandbox that runs the same 4 frames must be bit
+     for bit the same world (under deterministic algorithms); the middle
+     kernel against its plain version on the operands of a sandbox step
+     with a contact (E=1, N=4096, P=256), and the cluster kernel against
+     the plain rasterizer on a sandbox frame (render_view(plain=True)),
+     under phases 3 and 5's contracts; then 60 frames of the viewer's
+     scripted drive and 20 with static_bake=True (from a save), each run
+     counted: one middle launch per fixed substep, one cluster launch per
+     frame, no other kernel, finite state and rgb, some pixel covered, at
+     least 9 active sectors and some traffic; the viewer writes its frames
+     under build/sandbox_frames; prints the `sandbox_fps` line (frames/s,
+     baked and not, pair_overflow, the three slowest systems, the kernels'
+     entry ms at these shapes).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A kernel's `ms` is its entry point's
 time with CUDA events around 20 calls; every kernel adds phase 10's
-`kernel_ms`, the middle kernel its RL fleets' too. Phase 3 prints the
+`kernel_ms`, the middle kernel its RL fleets' too, and the middle and
+cluster kernels their sandbox record (`sandbox`). Phase 3 prints the
 physics kernels' shared memory per env and the CTAs (envs) and warps one
 SM holds at the fleets' shapes (the SAT kernel's per CTA of 256 pair
 slots).
@@ -116,6 +137,9 @@ ENVS, BODIES, STEPS, PLAIN_STEPS = 1024, 64, 240, 20
 FRAMES, WARM_FRAMES, PLAIN_FRAMES = 30, 3, 3
 RL_LEN = 10  # steps per RL rollout and per timed run of step()
 TRAIN_LEN, TRAIN_STEPS = 16, 3  # rollout horizon and timed train steps of phase 9
+# phase 11: frames to settle streaming (at most), timed frames, timed baked frames
+SANDBOX_SETTLE_FRAMES, SANDBOX_FRAMES, SANDBOX_BAKED_FRAMES = 150, 60, 20
+SANDBOX_SEARCH_FRAMES = 60  # frames to find a step with a contact, for the middle's check
 # the staged kernels' contracts (tests/test_physics_planar.py:298-384)
 SAT_TOL, SOLVE_TOL = 5e-6, 2e-5
 # the contract of scx's fused-kernel test (tests/test_physics_planar.py):
@@ -511,6 +535,233 @@ def run_frames(render, n):
     out[0].sum().item()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / n, out
+
+
+def capture_calls(module, name, run):
+    """run() with module.<name> wrapped to record each call's arguments and
+    result; returns (run's result, [(args, result), ...])."""
+    front, seen = getattr(module, name), []
+
+    def wrapped(*args, **kwargs):
+        out = front(*args, **kwargs)
+        seen.append((args, out))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        out = run()
+    finally:
+        setattr(module, name, front)
+    return out, seen
+
+
+def streaming_quiet(sb) -> bool:
+    return sb.partition._in_flight == 0 and all(
+        s.state.name in ("ACTIVE", "UNLOADED") for s in sb.partition.sectors.values())
+
+
+def sandbox_columns(sb):
+    """Every tensor of the sandbox's world state and contact cache, by path."""
+    from dataclasses import fields, is_dataclass
+
+    out = {}
+
+    def visit(prefix, node):
+        if is_dataclass(node):
+            for f in fields(node):
+                visit(f"{prefix}.{f.name}", getattr(node, f.name))
+        else:
+            out[prefix] = node
+
+    visit("state", sb.state)
+    visit("cache", sb._cache)
+    return out
+
+
+def sandbox_phase(card):
+    """Phase 11: scx_torch.app.sandbox.Sandbox at its defaults on the card
+    (capacity 4096, 640x352 through the cluster kernel, max_pairs 256, the
+    procedural city with traffic, mip-mapped textures). Returns (the
+    kernels at the sandbox's shapes, for phase 10; the sandbox's record for
+    the kernels line)."""
+    import os
+    import warnings
+
+    import torch
+
+    from scx_torch.app import sandbox as sbx
+    from scx_torch.app import viewer
+    from scx_torch.ops import raster_clusters as trc
+    from scx_torch.physics import planar as pp
+    from scx_torch.timing import cuda_ms
+
+    t0 = time.perf_counter()
+    sb = sbx.Sandbox()
+    settle = 0
+    while settle < SANDBOX_SETTLE_FRAMES:
+        _, tel = sb.frame()
+        settle += 1
+        if streaming_quiet(sb) and tel.active_sectors >= 9 and settle >= 2:
+            break
+    torch.cuda.synchronize()
+    if not streaming_quiet(sb):
+        fail(f"sandbox: streaming not quiet after {settle} frames")
+    print(json.dumps({"check": "sandbox settled", "frames": settle,
+                      "seconds": time.perf_counter() - t0, "active_sectors": tel.active_sectors,
+                      "entities": tel.entities, "traffic_total": tel.traffic_total}), flush=True)
+
+    # bitwise resume: save now (streaming quiet), run 4 frames, load into a
+    # new sandbox, run the same 4 frames; both runs under deterministic
+    # algorithms (any float sum by atomics would add in slot order)
+    save = os.path.join("build", "chip_smoke_sandbox", "save")
+    if not sb.save_game(save):
+        fail("sandbox: save_game failed")
+    drive = [viewer.scripted_input(i) for i in range(4)]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for inp in drive:
+                sb.frame(player_input=inp)
+            want = {k: v.clone() for k, v in sandbox_columns(sb).items()}
+            sb2 = sbx.Sandbox()
+            if not sb2.load_game(save):
+                fail("sandbox: load_game failed")
+            for inp in drive:
+                sb2.frame(player_input=inp)
+            got = sandbox_columns(sb2)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(".")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    unequal = [k for k in want if not torch.equal(want[k], got[k])]
+    print(json.dumps({"check": "sandbox save/load resume", "frames": len(drive),
+                      "columns": len(want), "bit_unequal_columns": unequal,
+                      "ops_without_deterministic_version": nondet}), flush=True)
+    if unequal:
+        fail(f"sandbox: resumed run differs from the uninterrupted one in {unequal}")
+    sb2.shutdown()
+    del sb2
+
+    # both kernels against their plain versions on one sandbox step and frame
+    # the first step of the scripted drive that has a valid contact (the
+    # world's few dynamic bodies touch now and then)
+    solver, mid_ops, i = sb.sim.solver, None, 4
+    while mid_ops is None and i < 4 + SANDBOX_SEARCH_FRAMES:
+        _, seen = capture_calls(pp, "middle_operands",
+                                lambda: sb.frame(player_input=viewer.scripted_input(i)))
+        i += 1
+        for _, (_, ops, _) in seen:
+            if mid_ops is None and (pp.middle_reference(*ops, solver)[3] > 0.5).any():
+                mid_ops = ops
+    if mid_ops is None:
+        fail(f"sandbox: no step with a valid contact in {SANDBOX_SEARCH_FRAMES} frames")
+    err_mid, live = check_middle("sandbox step", mid_ops, solver)
+    mid_ms = cuda_ms(lambda: pp.middle(*mid_ops, solver), 20)
+    mid_plain_ms = cuda_ms(lambda: pp.middle_reference(*mid_ops, solver), 3)
+    mid_bound, mid_by, _, _, _ = middle_bound(mid_ops, solver)
+    view = (sb.cam_pos, sb._cam_target, sb._cam_fov, sb.assets.device_materials(),
+            sb.assets.device_pool_mips())
+    (rgb_k, _, g_k, _), lists = capture_calls(trc, "frame_cluster_lists",
+                                              lambda: sb.render_view(*view))
+    rgb_p, _, g_p, _ = sb.render_view(*view, plain=True)
+    err_cl, differ = check_gbuffer("sandbox frame", g_k, g_p)
+    rgb_err = (rgb_k - rgb_p).abs().max().item()
+    if rgb_err > RGB_TOL:
+        fail(f"sandbox frame: plain rgb differs by {rgb_err} (tol {RGB_TOL})")
+    setup, aabb, valid, fparams = lists[0][0]
+    ids, counts, zmin, _ = trc.frame_cluster_lists(setup, aabb, valid, fparams)
+    kc = fparams.max_clusters_per_tile
+    work = torch.zeros(fparams.n_tiles, dtype=torch.int32, device=setup.device)
+    walked, won = torch.zeros_like(work), torch.zeros(fparams.max_tris, dtype=torch.bool,
+                                                      device=setup.device)
+    trc.rasterize_clusters_reference(setup, ids, counts, fparams, kc, zmin, work, walked, won)
+    cl_ms = cuda_ms(lambda: trc.rasterize_clusters(setup, ids, counts, fparams, kc, zmin), 20)
+    cl_plain_ms = cuda_ms(
+        lambda: trc.rasterize_clusters_reference(setup, ids, counts, fparams, kc, zmin), 2)
+    pixels, rows = cluster_pass_a_pixels(setup[None], aabb[None], ids[None], walked[None],
+                                         fparams)
+    cl_bound, cl_by, _ = raster_bound(work, rows, int(won.sum()), pixels, fparams,
+                                      4 * (ids.numel() + counts.numel() + zmin.numel()))
+    print(json.dumps({
+        "check": "sandbox kernels vs plain", "bodies": int(mid_ops[0].shape[-1]),
+        "pairs": int(mid_ops[1].shape[-1]), "kinds": list(solver.shape_kinds),
+        "max_live_pairs": live, "middle_max_abs_err": err_mid, "middle_ms": mid_ms,
+        "middle_plain_ms": mid_plain_ms, "middle_bound_ms": mid_bound, "middle_bound_by": mid_by,
+        "width": fparams.width, "height": fparams.height, "tiles": fparams.n_tiles, "kc": kc,
+        "max_tris": fparams.max_tris, "tris_in": int(valid.sum()),
+        "listed_clusters": int(counts.sum()), "cluster_max_abs_err": err_cl,
+        "pixels_differing": differ, "rgb_max_abs_diff": rgb_err, "cluster_ms": cl_ms,
+        "cluster_plain_ms": cl_plain_ms, "cluster_bound_ms": cl_bound, "cluster_bound_by": cl_by,
+        "card": card}), flush=True)
+
+    # the main path: 60 frames of the viewer's scripted drive, counted
+    def drive_frames(box, first, n):
+        steps, ovf, systems = 0, 0, {}
+        torch.cuda.synchronize()
+        reset_counts()
+        t = time.perf_counter()
+        for k in range(first, first + n):
+            rgb, tel = box.frame(player_input=viewer.scripted_input(k))
+            steps += box.n_steps
+            ovf = max(ovf, tel.pair_overflow)
+            for name, ms in box.scheduler.stats_ms.items():
+                systems[name] = systems.get(name, 0.0) + ms / n
+        rgb.sum().item()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = {"middle": pp.MIDDLE_KERNEL_LAUNCHES,
+                    "cluster": trc.RASTER_CLUSTERS_LAUNCHES,
+                    "other": (pp.SAT_KERNEL_LAUNCHES + pp.SOLVE_KERNEL_LAUNCHES
+                              + trc.RASTER_CLUSTERS_BATCHED_LAUNCHES)}
+        if launches["middle"] != steps or launches["cluster"] != n or launches["other"]:
+            fail(f"sandbox: {launches} kernel launches in {n} frames of {steps} fixed steps")
+        if not (torch.isfinite(rgb).all() and torch.isfinite(box.state.transform.pos).all()
+                and torch.isfinite(box.state.body.vel).all()
+                and box._frame_gbuffer["covered"].any()):
+            fail("sandbox: rgb or state not finite, or no pixel covered")
+        if tel.active_sectors < 9 or tel.traffic_total <= 0:
+            fail(f"sandbox: {tel.active_sectors} active sectors, {tel.traffic_total} traffic")
+        return n / secs, steps, ovf, systems, launches, tel
+
+    fps, steps, ovf, systems, launches, tel = drive_frames(sb, i, SANDBOX_FRAMES)
+    i += SANDBOX_FRAMES
+    sb.save_game(save)
+    baked = sbx.Sandbox(static_bake=True)
+    if not baked.load_game(save):
+        fail("sandbox: the baked sandbox could not load the save")
+    baked.frame(player_input=viewer.scripted_input(i))  # bakes the statics
+    fps_b, steps_b, ovf_b, _, launches_b, _ = drive_frames(baked, i + 1, SANDBOX_BAKED_FRAMES)
+    slowest = sorted(systems.items(), key=lambda kv: -kv[1])[:3]
+    saved = viewer.main(["--frames", "3", "--out", os.path.join("build", "sandbox_frames")])
+    if len(saved) != 1 or not all(os.path.getsize(f) > 0 for f in saved):
+        fail(f"viewer wrote {saved}")
+    rec = {"metric": "sandbox_fps", "path": "cuda-kernel", "value": fps,
+           "baked_value": fps_b, "frames": SANDBOX_FRAMES, "baked_frames": SANDBOX_BAKED_FRAMES,
+           "fixed_steps": steps, "baked_fixed_steps": steps_b, "launches": launches,
+           "baked_launches": launches_b, "capacity": sb.capacity,
+           "width": sb.raster.width, "height": sb.raster.height,
+           "active_sectors": tel.active_sectors, "entities": tel.entities,
+           "traffic_total": tel.traffic_total, "pair_overflow": max(ovf, ovf_b),
+           "middle_ms": mid_ms, "cluster_ms": cl_ms,
+           "slowest_systems_ms": dict(slowest), "viewer_frames": saved, "card": card}
+    print(json.dumps(rec), flush=True)
+    sb.shutdown()
+    baked.shutdown()
+    alone = [("sandbox_middle", "planar_middle_kernel",
+              functools.partial(pp.middle, *mid_ops, solver)),
+             ("sandbox_clusters", "cluster_raster_kernel",
+              functools.partial(trc.rasterize_clusters, setup, ids, counts, fparams, kc, zmin))]
+    return alone, {
+        "planar_middle": {"launches": launches["middle"] + launches_b["middle"],
+                          "max_abs_err": err_mid, "ms": mid_ms, "plain_ms": mid_plain_ms,
+                          "bound_ms": mid_bound, "bound_by": mid_by,
+                          "bodies": int(mid_ops[0].shape[-1]), "pairs": int(mid_ops[1].shape[-1])},
+        "rasterize_clusters": {"launches": launches["cluster"] + launches_b["cluster"],
+                               "max_abs_err": err_cl, "ms": cl_ms, "plain_ms": cl_plain_ms,
+                               "bound_ms": cl_bound, "bound_by": cl_by,
+                               "width": fparams.width, "height": fparams.height},
+    }
 
 
 def main():
@@ -1050,6 +1301,11 @@ def main():
         fail("two-agent tile fleet: wrong shapes, nothing covered, or a faulty step")
     del env
 
+    # ---- 11. the sandbox on the card (before phase 10: the profiler may ---
+    # leave a cost per launch behind it) ---------------------------------------
+    sandbox_alone, sandbox = sandbox_phase(card)
+    alone += sandbox_alone
+
     # ---- 10. each kernel alone: phases 3, 4b, 5 and 7's inputs, RL fleets --
     kernel_alone = {}
     for kname, cuda_name, kernel in alone:
@@ -1059,6 +1315,8 @@ def main():
     del alone
     for kname in ("rasterize_clusters_batched", "rasterize_tiles_batched"):
         batched[kname]["kernel_ms"] = kernel_alone[kname]
+    sandbox["planar_middle"]["kernel_ms"] = kernel_alone["sandbox_middle"]
+    sandbox["rasterize_clusters"]["kernel_ms"] = kernel_alone["sandbox_clusters"]
     rl_alone = {}
     for name, (rops, solver) in rl_middle.items():
         k_ms = kernel_ms(functools.partial(pp.middle, *rops, solver), 20,
@@ -1079,7 +1337,7 @@ def main():
          "replaces": "scx/physics/planar.py:1786", "launches": launches,
          "max_abs_err": err_main, "ms": middle_ms, "kernel_ms": kernel_alone["planar_middle"],
          "plain_ms": plain_ms, "bound_ms": mid_bound, "bound_by": mid_by, "library_ms": None,
-         "rl_fleets": rl_alone},
+         "rl_fleets": rl_alone, "sandbox": sandbox["planar_middle"]},
         {"name": "planar_sat", "route": "cuda",
          "source": "scx_torch/physics/csrc/planar_staged.cu",
          "replaces": "scx/physics/planar.py:818", "launches": sat_launches,
@@ -1097,7 +1355,8 @@ def main():
          "replaces": "scx/ops/raster_clusters.py:404",
          "launches": frame_launches["render_frame_baked"], "max_abs_err": err_cl,
          "ms": cl_ms, "kernel_ms": kernel_alone["rasterize_clusters"], "plain_ms": cl_plain_ms,
-         "bound_ms": cl_bound, "bound_by": cl_by, "library_ms": None},
+         "bound_ms": cl_bound, "bound_by": cl_by, "library_ms": None,
+         "sandbox": sandbox["rasterize_clusters"]},
         {"name": "rasterize_tiles", "route": "cuda", "source": "scx_torch/ops/csrc/raster.cu",
          "replaces": "scx/ops/raster.py:155", "launches": tile_launches,
          "max_abs_err": err_t, "ms": t_ms, "kernel_ms": kernel_alone["rasterize_tiles"],

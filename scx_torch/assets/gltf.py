@@ -1,11 +1,11 @@
-"""GLB (binary glTF) importer (copy of the parts of scx.assets.gltf that
-scx_torch.assets.glbgen.building_pool_meshes needs) — pure Python port of
-the reference importer's capability surface.
+"""GLB (binary glTF) importer (copy of scx.assets.gltf) — pure Python port
+of the reference importer's capability surface.
 
 The reference parses GLB via a vendored header (mesh_importer_glb.cpp):
 POSITION/NORMAL/TEXCOORD_0 accessors, submeshes per primitive, baseColor
-texture URI extraction, node hierarchy with local matrices and an
-optional bake-node-transforms flatten (mesh_importer.h:84-111). Output
+texture URI extraction, node hierarchy with local matrices, an optional
+bake-node-transforms flatten, and mesh bounds computation
+(mesh_importer.h:84-111). Output
 feeds scx_torch.render.mesh.build_mesh_pool
 (vertex = pos + color + uv, color defaulting to white or a simple N.L shade
 from the normal so unlit rendering keeps depth cues).
@@ -291,3 +291,9 @@ def mesh_to_pool_arrays(mesh: ImportedMesh, shade_normals: bool = True):
     tris = mesh.indices.reshape(-1, 3).astype(np.int32)
     return verts, tris
 
+
+def compute_mesh_bounds(mesh: ImportedMesh):
+    """AABB of positions (ComputeMeshBounds, mesh_importer.h:107)."""
+    if len(mesh.positions) == 0:
+        return np.zeros(3, np.float32), np.zeros(3, np.float32)
+    return mesh.positions.min(0), mesh.positions.max(0)

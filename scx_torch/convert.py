@@ -9,6 +9,11 @@ or SimParams' attributes. Fields are read by attribute,
 so this module needs neither jax nor scx. Nothing here has learned
 weights: this state and scene data is what carries across. Tensors go to
 `device`, the card unless the caller names another.
+
+The sandbox's state carries across through files instead: its save-game
+(scx_torch.app.checkpoint, used by Sandbox.save_game / load_game) writes
+and reads scx's own format, so a save written by scx's Sandbox loads into
+the port's and one written by the port loads into scx's.
 """
 
 from __future__ import annotations

@@ -128,8 +128,19 @@ def mat4_trs(pos, rot_euler, scale) -> torch.Tensor:
 def mat4_perspective_rh_zo(fovy: float, aspect: float, z_near: float, z_far: float,
                            flip_y: bool = True, device=None) -> torch.Tensor:
     """Right-handed, depth 0..1, optional Vulkan Y flip. Entries are
-    rounded to f32 from f32 operands, as scx computes them."""
+    rounded to f32 from f32 operands, as scx computes them. `fovy` may be
+    a 0-d tensor (a dynamic FOV): the matrix is then built on its device,
+    with no host read."""
     f32 = np.float32
+    if isinstance(fovy, torch.Tensor):
+        f = 1.0 / torch.tan(fovy.to(torch.float32) * 0.5)
+        m = torch.zeros((4, 4), dtype=torch.float32, device=fovy.device)
+        m[0, 0] = f / f32(aspect)
+        m[1, 1] = -f if flip_y else f
+        m[2, 2] = float(f32(z_far) / (f32(z_near) - f32(z_far)))
+        m[2, 3] = float((f32(z_far) * f32(z_near)) / (f32(z_near) - f32(z_far)))
+        m[3, 2] = -1.0
+        return m
     f = f32(1.0) / f32(np.tan(f32(fovy) * f32(0.5)))
     m = torch.zeros((4, 4), dtype=torch.float32, device=device)
     m[0, 0] = float(f / f32(aspect))

@@ -1,4 +1,5 @@
-"""Scene queries: the closest-hit raycast (port of scx.physics.queries).
+"""Scene queries: the closest-hit raycast and the swept sphere and capsule
+(port of scx.physics.queries).
 
 Brute force over every body, in column form, as scx does it. A fleet of
 scenes casts a bundle of rays per scene at once: bodies are [E, N],
@@ -104,18 +105,22 @@ def _ray_capsule_local_cols(ox, oy, oz, dx, dy, dz, r, hh):
 
 
 def raycast(bodies: RigidBodies, origin, direction, max_t, query_mask: int = 0xFFFFFFFF,
-            exclude=-1) -> RayHit:
+            exclude=-1, inflate: float = 0.0) -> RayHit:
     """Closest hit of rays [E, R] against every active body of their scene.
 
     origin, direction: [E, R, 3]; max_t: a float or [E, R]; exclude: a body
     index per ray ([E, R], or an int) that the ray skips (the caster);
-    query_mask filters bodies by (layer & query_mask) != 0."""
+    query_mask filters bodies by (layer & query_mask) != 0; `inflate` grows
+    every shape by that radius (the swept sphere of sphere_cast)."""
     d = m3.normalize(direction)
     centers = shape_centers(bodies)
     col = lambda x: x[..., None, :]  # [E, N] -> [E, 1, N]
     cx, cy, cz = (col(centers[..., i]) for i in range(3))
     qw, qx, qy, qz = (col(bodies.quat[..., i]) for i in range(4))
     sx, sy, sz = (col(bodies.size[..., i]) for i in range(3))
+    hy = sy  # the capsule's half height is not inflated
+    if inflate:
+        sx, sy, sz = sx + inflate, sy + inflate, sz + inflate
     o = [origin[..., i, None] for i in range(3)]  # [E, R, 1]
     dv = [d[..., i, None] for i in range(3)]
 
@@ -124,7 +129,7 @@ def raycast(bodies: RigidBodies, origin, direction, max_t, query_mask: int = 0xF
     dlx, dly, dlz = _rot_cols(qw, -qx, -qy, -qz, *(c.expand(shape) for c in dv))
 
     t_box, bnx, bny, bnz = _ray_box_local_cols(olx, oly, olz, dlx, dly, dlz, sx, sy, sz)
-    t_cap, knx, kny, knz = _ray_capsule_local_cols(olx, oly, olz, dlx, dly, dlz, sx, sy)
+    t_cap, knx, kny, knz = _ray_capsule_local_cols(olx, oly, olz, dlx, dly, dlz, sx, hy)
     t_sph, snx, sny, snz = _ray_sphere_cols(*(c.expand(shape) for c in o), *dv,
                                             cx, cy, cz, sx)
 
@@ -164,4 +169,43 @@ def raycast(bodies: RigidBodies, origin, direction, max_t, query_mask: int = 0xF
         body=torch.where(hit, idx.to(torch.int32), -1),
         point=origin + d * t_out[..., None],
         normal=torch.where(hit[..., None], normal, up),
+    )
+
+
+def sphere_cast(bodies: RigidBodies, origin, direction, max_t, radius, **kw) -> RayHit:
+    """Swept sphere = raycast against Minkowski-inflated shapes (box
+    corners squared off, as in scx and the reference's approximate sweep
+    for camera occlusion and character probes)."""
+    return raycast(bodies, origin, direction, max_t, inflate=radius, **kw)
+
+
+def capsule_cast(bodies: RigidBodies, origin, axis, half_height, radius, direction, max_t,
+                 stations: int = 5, exclude=-1, **kw) -> RayHit:
+    """Swept capsule — PhysicsWorld::sweepCapsule parity (sc_physics.cpp:
+    740-810), as scx approximates it: `stations` parallel swept spheres
+    along the capsule's core segment (origin + axis * s, s in [-hh, hh]),
+    the closest hit winning. origin, axis, direction: [E, R, 3]; max_t and
+    exclude as for raycast. The stations are one more ray axis: all
+    [E, R * stations] casts run in one column pass."""
+    e, r = origin.shape[:2]
+    up = m3.safe_normalize(axis, torch.tensor([0.0, 1.0, 0.0], device=origin.device))
+    s = torch.linspace(-1.0, 1.0, stations, device=origin.device) * half_height
+    o = origin[..., None, :] + up[..., None, :] * s[:, None]           # [E, R, S, 3]
+    flat = lambda x: x.reshape(e, r * stations, *x.shape[3:])
+    rep = lambda x: flat(torch.as_tensor(x, device=origin.device).expand(e, r)[..., None]
+                         .expand(e, r, stations))
+    d = flat(direction[..., None, :].expand(e, r, stations, 3))
+    mt = rep(max_t) if isinstance(max_t, torch.Tensor) else max_t
+    hits = raycast(bodies, flat(o), d, mt, exclude=rep(exclude), inflate=radius, **kw)
+    unflat = lambda x: x.reshape(e, r, stations, *x.shape[2:])
+    t = torch.where(unflat(hits.hit), unflat(hits.t), _BIG)
+    best = torch.argmin(t, dim=-1, keepdim=True)                        # [E, R, 1]
+    pick = lambda x: torch.gather(unflat(x), 2, best)[:, :, 0]
+    pick3 = lambda x: torch.gather(unflat(x), 2, best[..., None].expand(e, r, 1, 3))[:, :, 0]
+    return RayHit(
+        hit=unflat(hits.hit).any(-1),
+        t=pick(hits.t),
+        body=pick(hits.body),
+        point=pick3(hits.point),
+        normal=pick3(hits.normal),
     )

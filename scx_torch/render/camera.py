@@ -27,7 +27,8 @@ def camera_view_proj(eye, target, up, aspect: float,
                      device=None) -> torch.Tensor:
     """[4,4] f32 viewProj. `eye`, `target` and `up` are 3-vectors; tensors
     keep their device, anything else goes to `device` (the card by
-    default)."""
+    default). `fov_y_deg` may be a 0-d tensor (the chase camera's dynamic
+    FOV)."""
     if not isinstance(eye, torch.Tensor):
         device = resolve_device(device)
     else:
@@ -36,7 +37,10 @@ def camera_view_proj(eye, target, up, aspect: float,
         v, torch.Tensor) else v, dtype=torch.float32, device=device)
     view = m3.mat4_look_at_rh(vec(eye), vec(target), vec(up))
     fov = params.fov_y_deg if fov_y_deg is None else fov_y_deg
-    fovy = np.float32(fov) * np.float32(np.pi / 180.0)  # jnp.radians in f32
+    if isinstance(fov, torch.Tensor):  # a dynamic FOV stays on its device
+        fovy = fov.to(torch.float32) * np.float32(np.pi / 180.0)
+    else:
+        fovy = np.float32(fov) * np.float32(np.pi / 180.0)  # jnp.radians in f32
     proj = m3.mat4_perspective_rh_zo(fovy, aspect, params.near_z, params.far_z,
                                      flip_y=params.flip_y, device=device)
     return m3.mat4_mul(proj, view)

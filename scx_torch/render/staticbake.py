@@ -160,12 +160,21 @@ def static_entity_mask(state: ent.EntityState):
             & (state.traffic.mode == ent.TRAFFIC_NONE))
 
 
-def bake_static_tris(state: ent.EntityState, pool: MeshPool, max_tris: int):
-    """Bake every env's static entities -> [E, 26, T] world-space columns,
-    in slot order (the unbaked path's draw order, so triangle tie-breaks
-    agree)."""
-    return _bake_core(state.render.mesh_id, state.render.material_id,
-                      world_matrix_cols(state), static_entity_mask(state), pool, max_tris)
+def bake_static_tris(state: ent.EntityState, pool: MeshPool, max_tris: int,
+                     morton: bool = False):
+    """Bake every env's static entities -> [E, 26, T] world-space columns.
+    morton=False keeps slot order (the unbaked path's draw order, so
+    triangle tie-breaks agree); morton=True orders sources by world XZ for
+    cluster locality (the sandbox's bake)."""
+    mask = static_entity_mask(state)
+    mid, mat = state.render.mesh_id, state.render.material_id
+    cols = world_matrix_cols(state)
+    if morton:
+        order = _morton_xz_order(state.transform.pos[..., 0], state.transform.pos[..., 2], mask)
+        take = lambda x: torch.gather(x, -1, order)
+        mask, mid, mat = take(mask), take(mid), take(mat)
+        cols = tuple(take(c) for c in cols)
+    return _bake_core(mid, mat, cols, mask, pool, max_tris)
 
 
 def static_tri_total(state: ent.EntityState, pool: MeshPool):

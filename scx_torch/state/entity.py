@@ -15,6 +15,7 @@ from dataclasses import dataclass, fields, is_dataclass, replace
 import torch
 
 from scx_torch import resolve_device
+from scx_torch.core import memtrack
 
 # body types (sc_physics.h:30-35)
 BODY_NONE = -1
@@ -165,7 +166,7 @@ def alloc_entity_state(capacity: int, envs: int, device=None) -> EntityState:
 
     rot = full((4,), 0.0)
     rot[..., 0] = 1.0
-    return EntityState(
+    state = EntityState(
         alive=full((), False, torch.bool),
         generation=full((), 0, i64),
         uid=torch.arange(n, dtype=i32, device=device).expand(e, n).clone(),
@@ -230,4 +231,92 @@ def alloc_entity_state(capacity: int, envs: int, device=None) -> EntityState:
             wheel_contact=full((4,), False, torch.bool),
             wheel_omega=full((4,), 0.0),
         ),
+    )
+    memtrack.track_array(memtrack.TAG_STATE, state, f"EntityState[{envs}x{capacity}]")
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Entity lifecycle (scx.state.entity:260-321), per env: slots, masks and
+# columns carry the env axis [E, k, ...]
+# ---------------------------------------------------------------------------
+
+def entity_count(state: EntityState) -> torch.Tensor:
+    """Live entities per env, [E] i32."""
+    return state.alive.sum(-1, dtype=torch.int32)
+
+
+def compact_free_slots(state: EntityState, k: int) -> torch.Tensor:
+    """[E, min(k, C)] i32: each env's first k free slots, lowest index first,
+    padded with C (no slot) when the env is full (EntityManager::create's
+    free-list pop, sc_ecs.cpp:11-32)."""
+    n = state.capacity
+    idx = torch.arange(n, dtype=torch.int32, device=state.alive.device)
+    key = torch.where(state.alive, n, idx)
+    return torch.sort(key, dim=-1).values[..., :k]
+
+
+def _drop_put(arr: torch.Tensor, slots: torch.Tensor, value) -> torch.Tensor:
+    """arr [E, C, ...] with rows `slots` [E, k] set to value [E, k, ...];
+    slots == C are dropped (scx's scatter mode="drop"): they write a dump
+    row that is sliced off."""
+    e, n = arr.shape[:2]
+    pad = torch.cat([arr, arr[:, :1]], dim=1)
+    value = torch.as_tensor(value, dtype=arr.dtype, device=arr.device)
+    value = value.expand(slots.shape + arr.shape[2:])
+    env = torch.arange(e, device=arr.device)[:, None].expand(slots.shape)
+    pad[env, slots] = value
+    return pad[:, :n]
+
+
+def spawn_entities(state: EntityState, slots, valid=None, **columns) -> EntityState:
+    """Masked scatter-spawn: claim `slots` [E, k] (where `valid` [E, k]),
+    set alive and write the given component columns.
+
+    `columns` maps flat paths like "transform.pos" to [E, k, ...] values
+    (or [k, ...], the same for every env); "components" may be given to set
+    presence bits. Slots outside [0, C) or not valid are dropped, as scx's
+    out-of-range scatters are."""
+    n = state.capacity
+    dev = state.alive.device
+    slots = torch.as_tensor(slots, device=dev).long()
+    if slots.dim() == 1:
+        slots = slots.expand(state.alive.shape[0], -1)
+    keep = (slots >= 0) & (slots < n)
+    if valid is not None:
+        keep &= torch.as_tensor(valid, device=dev)
+    slots = torch.where(keep, slots, n)
+    state = replace(state, alive=_drop_put(state.alive, slots, True))
+    for path, value in columns.items():
+        parts = path.split(".")
+        if len(parts) == 1:
+            state = replace(state, **{parts[0]: _drop_put(getattr(state, parts[0]), slots,
+                                                          value)})
+        else:
+            group = getattr(state, parts[0])
+            group = replace(group, **{parts[1]: _drop_put(getattr(group, parts[1]), slots,
+                                                          value)})
+            state = replace(state, **{parts[0]: group})
+    return state
+
+
+def destroy_entities(state: EntityState, kill_mask) -> EntityState:
+    """Masked destroy [E, C]: clears alive and components, bumps generation
+    with scx's uint32 wrap (the World::destroy across-pools analogue,
+    sc_ecs.cpp:80-90)."""
+    kill = torch.as_tensor(kill_mask, device=state.alive.device)
+    keep = state.alive & ~kill
+    b, tr = state.body, state.traffic
+    return replace(
+        state,
+        alive=keep,
+        generation=(state.generation + kill.to(torch.int64)) & U32,
+        components=torch.where(kill, 0, state.components),
+        body=replace(
+            b,
+            body_type=torch.where(kill, BODY_NONE, b.body_type),
+            vel=torch.where(kill[..., None], 0.0, b.vel),
+            omega=torch.where(kill[..., None], 0.0, b.omega),
+        ),
+        traffic=replace(tr, mode=torch.where(kill, TRAFFIC_NONE, tr.mode)),
     )

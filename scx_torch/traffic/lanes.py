@@ -38,9 +38,8 @@ class LaneArrays:
 
 
 class LaneGraphBuilder:
-    """Host-side graph builder mirroring TrafficLaneGraph (the procedural
-    cross of scx.traffic.lanes.LaneGraphBuilder; authored lanes and
-    snapshots are not ported)."""
+    """Host-side graph builder mirroring TrafficLaneGraph (scx's numpy
+    builder as it is: procedural crosses, authored polylines, snapshots)."""
 
     def __init__(self, lane_width=DEFAULT_LANE_WIDTH, speed_limit=DEFAULT_SPEED_LIMIT,
                  max_nodes=1024, max_segments=1024):
@@ -52,6 +51,7 @@ class LaneGraphBuilder:
         self.segments: list[dict] = []
         self._lookup: dict[tuple, int] = {}
         self.sector_segments: dict[tuple, list[int]] = {}
+        self.dirty = True
 
     @staticmethod
     def _quant(v, scale):
@@ -62,8 +62,7 @@ class LaneGraphBuilder:
         # pos quantized to 0.25m, dir to 1e-3 (sc_traffic_lanes.cpp:30-44)
         return (
             self._quant(pos[0], 4.0), self._quant(pos[1], 4.0), self._quant(pos[2], 4.0),
-            self._quant(dir[0], 1000.0), self._quant(dir[1], 1000.0),
-            self._quant(dir[2], 1000.0),
+            self._quant(dir[0], 1000.0), self._quant(dir[1], 1000.0), self._quant(dir[2], 1000.0),
         )
 
     def add_node(self, pos, dir, speed_limit=None) -> int:
@@ -73,10 +72,13 @@ class LaneGraphBuilder:
         idx = len(self.nodes)
         if idx >= self.max_nodes:
             raise RuntimeError("lane node capacity exceeded")
-        self.nodes.append(dict(pos=tuple(pos), dir=tuple(dir),
-                               speed=speed_limit if speed_limit is not None else self.speed_limit,
-                               conn=[]))
+        self.nodes.append(
+            dict(pos=tuple(pos), dir=tuple(dir),
+                 speed=speed_limit if speed_limit is not None else self.speed_limit,
+                 conn=[])
+        )
         self._lookup[key] = idx
+        self.dirty = True
         return idx
 
     def add_segment(self, start: int, end: int, dir, owner: tuple) -> int:
@@ -92,18 +94,22 @@ class LaneGraphBuilder:
         idx = len(self.segments)
         if idx >= self.max_segments:
             raise RuntimeError("lane segment capacity exceeded")
-        self.segments.append(dict(start=start, end=end, dir=tuple(d), length=length,
-                                  owner=owner, active=True))
+        self.segments.append(
+            dict(start=start, end=end, dir=tuple(d), length=length,
+                 owner=owner, active=True)
+        )
         self.nodes[start]["conn"].append(idx)
+        self.dirty = True
         return idx
 
     def build_procedural_for_sector(self, coord: tuple, bounds_min, bounds_max):
-        """4-lane cross per sector (sc_traffic_lanes.cpp:158-225); a revisit
-        reactivates the sector's segments."""
+        """4-lane cross per sector (sc_traffic_lanes.cpp:158-225):
+        reactivates previously-built segments on revisit."""
         existing = self.sector_segments.get(coord)
         if existing:
             for s in existing:
                 self.segments[s]["active"] = True
+            self.dirty = True
             return
         min_x, min_z = bounds_min[0], bounds_min[2]
         max_x, max_z = bounds_max[0], bounds_max[2]
@@ -121,6 +127,105 @@ class LaneGraphBuilder:
         road((cx + off, 0.0, min_z), (cx + off, 0.0, max_z), (0.0, 0.0, 1.0))
         road((cx - off, 0.0, max_z), (cx - off, 0.0, min_z), (0.0, 0.0, -1.0))
         self.sector_segments[coord] = segs
+
+    def build_authored_for_sector(self, coord: tuple, polylines):
+        """Register authored lane polylines (LANE chunks of a sector file):
+        each polyline becomes a chain of segments; revisits reactivate."""
+        existing = self.sector_segments.get(coord)
+        if existing:
+            for s in existing:
+                self.segments[s]["active"] = True
+            self.dirty = True
+            return
+        segs = []
+        for points in polylines:
+            prev = None
+            for a, b in zip(points[:-1], points[1:]):
+                d = np.asarray(b, np.float64) - np.asarray(a, np.float64)
+                n = np.linalg.norm(d)
+                if n < 1e-6:
+                    continue
+                d = (d / n).tolist()
+                # share the corner node along the chain so advance-along-lane
+                # can walk it (the dedup key includes direction, which would
+                # otherwise split the corner into two nodes)
+                n0 = prev if prev is not None else self.add_node(a, d)
+                n1 = self.add_node(b, d)
+                segs.append(self.add_segment(n0, n1, d, coord))
+                prev = n1
+        self.sector_segments[coord] = segs
+
+    def to_snapshot(self) -> dict:
+        """JSON-able snapshot of the WHOLE graph, deactivated segments
+        included. Save-games must restore the graph verbatim rather than
+        rebuild it per active sector: device state carries lane_id columns
+        that index self.segments, and an incremental rebuild in a
+        different activation order (or without since-unloaded sectors'
+        segments occupying their indices) would silently remap them."""
+        return {
+            "nodes": [
+                {
+                    "pos": list(n["pos"]),
+                    "dir": list(n["dir"]),
+                    "speed": float(n["speed"]),
+                    "conn": [int(c) for c in n["conn"]],
+                }
+                for n in self.nodes
+            ],
+            "segments": [
+                {
+                    "start": int(s["start"]),
+                    "end": int(s["end"]),
+                    "dir": list(s["dir"]),
+                    "length": float(s["length"]),
+                    "owner": list(s["owner"]) if s["owner"] else None,
+                    "active": bool(s["active"]),
+                }
+                for s in self.segments
+            ],
+            "lookup": [[list(k), int(v)] for k, v in self._lookup.items()],
+            "sector_segments": [
+                [list(c), [int(i) for i in ids]]
+                for c, ids in self.sector_segments.items()
+            ],
+        }
+
+    def from_snapshot(self, snap: dict) -> None:
+        """Inverse of to_snapshot — indices are preserved exactly."""
+        self.nodes = [
+            {
+                "pos": tuple(n["pos"]),
+                "dir": tuple(n["dir"]),
+                "speed": n["speed"],
+                "conn": list(n["conn"]),
+            }
+            for n in snap["nodes"]
+        ]
+        self.segments = [
+            {
+                "start": s["start"],
+                "end": s["end"],
+                "dir": tuple(s["dir"]),
+                "length": s["length"],
+                "owner": tuple(s["owner"]) if s["owner"] else None,
+                "active": s["active"],
+            }
+            for s in snap["segments"]
+        ]
+        self._lookup = {tuple(k): v for k, v in snap["lookup"]}
+        self.sector_segments = {
+            tuple(c): list(ids) for c, ids in snap["sector_segments"]
+        }
+        self.dirty = True
+
+    def remove_sector(self, coord: tuple):
+        """Deactivate (not delete) the sector's segments (:227-237)."""
+        for s in self.sector_segments.get(coord, []):
+            self.segments[s]["active"] = False
+        self.dirty = True
+
+    def lanes_for_sector(self, coord: tuple) -> list[int]:
+        return self.sector_segments.get(coord, [])
 
     def to_arrays(self, device=None) -> LaneArrays:
         """The graph as LaneArrays on `device` (the card by default)."""
@@ -145,6 +250,7 @@ class LaneGraphBuilder:
             seg_len[i] = s["length"]
             seg_speed[i] = self.nodes[s["start"]]["speed"]
             seg_active[i] = s["active"]
+        self.dirty = False
         t = lambda a: torch.from_numpy(a).to(device)
         return LaneArrays(node_pos=t(node_pos), node_conn=t(node_conn), seg_start=t(seg_start),
                           seg_end=t(seg_end), seg_dir=t(seg_dir), seg_len=t(seg_len),

@@ -13,6 +13,8 @@ need them, so the `cuda` tests can import this module without JAX."""
 from dataclasses import fields, is_dataclass
 
 import numpy as np
+import pytest
+import torch
 
 from scx_torch.ops import raster_clusters as trc
 from scx_torch.render import city
@@ -298,3 +300,16 @@ def check_resynced_steps(stepper, jenv, tenv, steps=3):
         covered.append((t_obs[..., 3] < 1.0).mean())
     assert np.asarray(j_rew).min() > 0  # the player drives forward
     return float(np.mean(covered))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module (an autouse fixture for the test
+    modules that import it). The port's CPU sandbox frames are thousands of
+    tiny ops: one thread runs them as fast as eight, and the test workers
+    that share the cores no longer oversubscribe them (each worker's eight
+    OpenMP threads made those frames 100x slower there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
