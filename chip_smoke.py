@@ -140,6 +140,14 @@ TRAIN_LEN, TRAIN_STEPS = 16, 3  # rollout horizon and timed train steps of phase
 # phase 11: frames to settle streaming (at most), timed frames, timed baked frames
 SANDBOX_SETTLE_FRAMES, SANDBOX_FRAMES, SANDBOX_BAKED_FRAMES = 150, 60, 20
 SANDBOX_SEARCH_FRAMES = 60  # frames to find a step with a contact, for the middle's check
+# phase 12: benchmarks/bench_bigscene.py's strips (64 m wide, NL rows: a slab,
+# NB boxes, NT traffic agents, NV vehicles; scx_torch.profile_bigscene.Scene)
+# on BIG_STRIPS local strips, timed steps; the physics-only strips; the
+# dp-sharded tile-fleet rollout
+BIG_STRIPS, BIG_NL, BIG_NB, BIG_NT, BIG_NV, BIG_STEPS = 4, 512, 400, 48, 8, 5
+BIG_FRAME = (1280, 768)
+SPATIAL_N, SPATIAL_WIDTH, SPATIAL_PAIRS, SPATIAL_STEPS = 512, 64.0, 256, 10
+SHARD_DP, SHARD_RL_STEPS, SHARD_ENVS = 4, 3, None  # None: the tile fleet's 4096 envs
 # the staged kernels' contracts (tests/test_physics_planar.py:298-384)
 SAT_TOL, SOLVE_TOL = 5e-6, 2e-5
 # the contract of scx's fused-kernel test (tests/test_physics_planar.py):
@@ -382,6 +390,48 @@ def middle_bound(ops, params):
     return (*bound(nbytes, nops), nbytes, nops, share)
 
 
+def staged_bounds(sat_ops, solve_ops, kinds, iters) -> dict:
+    """The SAT's and the solve's bounds on their operands (see the comments)."""
+    from scx_torch.physics import planar as pp
+
+    # bounds: what the function needs read once, every output written once;
+    # the plain version's operations on the slots that hold work (valid
+    # pairs for the SAT, pairs with a valid contact for the solve). The SAT
+    # needs pvf whole and the ga/gb columns of the pair-valid slots only
+    sat_outs = pp.sat_reference(*sat_ops, kinds)
+    sat_live = (sat_ops[2] > 0.5).float().mean().item()
+    sat_bytes = 4 * (sum(x.numel() for x in (sat_ops[2], *sat_outs))
+                     + (sat_ops[0].numel() + sat_ops[1].numel()) * sat_live)
+    sat_count = count_ops(lambda: pp.sat_reference(*sat_ops, kinds)) * sat_live
+    sat_bound, sat_by = bound(sat_bytes, sat_count)
+    # a slot that is not pair-valid still writes candidate 0's point, normal
+    # and depth, which need 10 of its rows of ga and of gb (center, quat,
+    # size; the shape row only with other kinds than boxes), and fp, 3 more
+    sat_rows = 13 if kinds == ("box",) else 14
+    sat_bytes_every_slot = 4 * (sum(x.numel() for x in (sat_ops[2], *sat_outs))
+                                + 2 * sat_rows * sat_ops[2].numel())
+    sat_bound_every_slot = bound(sat_bytes_every_slot, sat_count)[0]
+    # the solve reads its indices and velocities and writes its outputs
+    # whole; of the pack, every slot reads its validity and impulse rows
+    # (4 quantities x K), and only a slot with a valid contact the rest
+    solve_outs = pp.solve_reference(*solve_ops, iters)
+    jac = solve_ops[0]
+    q_cv = pp._solve_q("cvalid") * 4
+    solve_live = (jac[:, q_cv:q_cv + 4] > 0.5).any(1).float().mean().item()
+    always_rows = 4 * pp._K  # cvalid, ln0, l10, l20: K rows each
+    pack_bytes = 4 * jac.shape[0] * jac.shape[2] * (
+        always_rows + (jac.shape[1] - always_rows) * solve_live)
+    solve_bytes = pack_bytes + 4 * sum(x.numel() for x in (*solve_ops[1:], *solve_outs))
+    solve_count = count_ops(lambda: pp.solve_reference(*solve_ops, iters)) * solve_live
+    solve_bound, solve_by = bound(solve_bytes, solve_count)
+    return {"sat_bound_ms": sat_bound, "sat_bound_by": sat_by, "sat_bytes": sat_bytes,
+            "sat_operations": sat_count, "sat_bound_ms_every_slot_rows": sat_bound_every_slot,
+            "sat_bytes_every_slot_rows": sat_bytes_every_slot, "live_pair_share": sat_live,
+            "solve_bound_ms": solve_bound, "solve_bound_by": solve_by,
+            "solve_bytes": solve_bytes, "solve_pack_bytes": pack_bytes,
+            "solve_operations": solve_count, "contact_pair_share": solve_live}
+
+
 def physics_residency(card):
     """Shared memory per env and the CTAs (envs) and warps one SM holds, of
     the middle kernel at the three fleets' body counts and of the solve
@@ -553,6 +603,21 @@ def capture_calls(module, name, run):
     finally:
         setattr(module, name, front)
     return out, seen
+
+
+def capture_many(targets, run):
+    """run() with each (module, name) of targets wrapped as capture_calls
+    wraps one; returns (run's result, {name: [(args, result), ...]})."""
+    seen = {}
+
+    def nest(i):
+        if i == len(targets):
+            return run()
+        module, name = targets[i]
+        out, seen[name] = capture_calls(module, name, lambda: nest(i + 1))
+        return out
+
+    return nest(0), seen
 
 
 def streaming_quiet(sb) -> bool:
@@ -764,6 +829,298 @@ def sandbox_phase(card):
     }
 
 
+def spatial_world(strips: int, dev, make_bodies, dynamic, static):
+    """[strips, SPATIAL_N] boxes: a slab per strip under SPATIAL_N - 1 unit
+    boxes at seeded positions 1-12 m above it (some overlap at the start)."""
+    import numpy as np
+    import torch
+
+    w, n = SPATIAL_WIDTH, SPATIAL_N
+    rng = np.random.default_rng(7)
+    pos = np.stack([rng.uniform(1, w - 1, (strips, n)), rng.uniform(1.0, 12.0, (strips, n)),
+                    rng.uniform(-w / 2 + 1, w / 2 - 1, (strips, n))], -1).astype(np.float32)
+    pos[..., 0] += (np.arange(strips) * w)[:, None]
+    size = np.full((strips, n, 3), 0.5, np.float32)
+    btype = np.full((strips, n), dynamic, np.int32)
+    pos[:, 0] = np.stack([np.arange(strips) * w + w / 2, np.full(strips, -0.55),
+                          np.zeros(strips)], -1)
+    size[:, 0] = (w / 2, 0.05, w / 2)
+    btype[:, 0] = static
+    return make_bodies(torch.from_numpy(pos).to(dev), size=torch.from_numpy(size).to(dev),
+                       body_type=torch.from_numpy(btype).to(dev))
+
+
+def scale_out_phase(card, dev=None):
+    """Phase 12: the scale-out paths on the card (`dev`: the first card),
+    local shards of one device. Returns (the kernels at the new shapes, for
+    phase 10; the records for the kernels line)."""
+    import torch
+
+    from scx_torch import profile_bigscene
+    from scx_torch.app import rlenv
+    from scx_torch.core.tree import tree_leaves, tree_map
+    from scx_torch.ops import raster as tr
+    from scx_torch.ops import raster_clusters as trc
+    from scx_torch.parallel import spatial as psp
+    from scx_torch.parallel.dryrun import dryrun_multichip
+    from scx_torch.parallel.mesh import make_mesh
+    from scx_torch.physics import planar as pp
+    from scx_torch.physics.rigid import BODY_DYNAMIC, BODY_STATIC, make_bodies
+    from scx_torch.physics.solver import SolverParams
+    from scx_torch.render import pipeline as rp
+    from scx_torch.timing import cuda_ms
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    alone, rec = [], {}
+    pp_clone = lambda tree: None if tree is None else tree_map(torch.clone, tree)
+
+    # ---- 12.1 the big scene at full width, S local strips ----
+    t0 = time.perf_counter()
+    sc = profile_bigscene.Scene(BIG_STRIPS, dev, frame=BIG_FRAME, rows=BIG_NL, boxes=BIG_NB,
+                                traffic=BIG_NT, vehicles=BIG_NV)
+    state, lanes, caches, vp, sim, step = sc.state, sc.lanes, sc.caches, sc.vp, sc.sim, sc.step
+    w_px, h_px = BIG_FRAME
+    n_body = BIG_NL + 2 * sc.halo_cap
+    route = pp.step_route(n_body, sim.solver.max_pairs, dev)
+    # one step for its operands: the SAT's and the solve's (from the staged
+    # step's calls of its stages), and each strip's lists
+    (state, caches, rgb, stats), seen = capture_many(
+        ((pp, "planar_contacts"), (pp, "planar_solve"), (trc, "frame_cluster_lists")),
+        lambda: step(state, caches, lanes, vp))
+    torch.cuda.synchronize()
+    print(json.dumps({"check": "bigscene built", "strips": BIG_STRIPS, "rows_per_strip": BIG_NL,
+                      "bodies_per_strip_step": n_body, "pairs": sim.solver.max_pairs,
+                      "route": route,
+                      "middle_smem_bytes": pp.middle_smem_bytes(n_body, sim.solver.max_pairs),
+                      "solve_smem_bytes": pp.solve_smem_bytes(n_body, sim.solver.max_pairs),
+                      "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+    if route != "staged" or len(seen["planar_contacts"]) != 1 or len(seen["planar_solve"]) != 1:
+        fail(f"bigscene: route {route}, {len(seen['planar_contacts'])} staged steps in a step")
+    b_c, ia, ib, pair_valid = seen["planar_contacts"][0][0][:4]
+    sat_ops = pp._sat_inputs(b_c, ia, ib, pair_valid)
+    b_s, con, _, ia, ib, lam0 = seen["planar_solve"][0][0][:6]
+    jac, vw0, _ = pp.solve_pack(b_s, con, sim.solver, ia, ib, lam0)
+    solve_ops = (jac, ia, ib, vw0)
+    kinds, iters = sim.solver.shape_kinds, sim.solver.iterations
+    err_sat, err_solve, live = check_staged("bigscene step", sat_ops, solve_ops, sim.solver)
+    sb = staged_bounds(sat_ops, solve_ops, kinds, iters)
+    sat_ms = cuda_ms(lambda: pp.sat_fleet(*sat_ops, kinds), 20)
+    sat_plain_ms = cuda_ms(lambda: pp.sat_reference(*sat_ops, kinds), 3)
+    solve_ms = cuda_ms(lambda: pp.solve_fleet(*solve_ops, iters), 20)
+    solve_plain_ms = cuda_ms(lambda: pp.solve_reference(*solve_ops, iters), 3)
+    # the cluster kernel on the strip with the most listed clusters
+    strips = seen["frame_cluster_lists"]
+    if len(strips) != BIG_STRIPS:
+        fail(f"bigscene: {len(strips)} strips rendered, not {BIG_STRIPS}")
+    setup, aabb, valid, fparams = max(strips, key=lambda c: int(c[1][1].sum()))[0]
+    ids, counts, zmin, _ = trc.frame_cluster_lists(setup, aabb, valid, fparams)
+    kc = fparams.max_clusters_per_tile
+    work_k = torch.zeros(fparams.n_tiles, dtype=torch.int32, device=dev)
+    work_p, walked = torch.zeros_like(work_k), torch.zeros_like(work_k)
+    won = torch.zeros(fparams.max_tris, dtype=torch.bool, device=dev)
+    got = trc.rasterize_clusters(setup, ids, counts, fparams, kc, zmin, work_k)
+    ref = trc.rasterize_clusters_reference(setup, ids, counts, fparams, kc, zmin, work_p,
+                                           walked, won)
+    err_cl, differ = check_gbuffer("bigscene strip rasterize_clusters", got, ref)
+    if not torch.equal(work_k, work_p):
+        fail("bigscene strip: pass A's work per tile differs from the plain version's")
+    cl_ms = cuda_ms(lambda: trc.rasterize_clusters(setup, ids, counts, fparams, kc, zmin), 20)
+    cl_plain_ms = cuda_ms(
+        lambda: trc.rasterize_clusters_reference(setup, ids, counts, fparams, kc, zmin), 2)
+    pixels, rows = cluster_pass_a_pixels(setup[None], aabb[None], ids[None], walked[None],
+                                         fparams)
+    cl_bound, cl_by, _ = raster_bound(work_k, rows, int(won.sum()), pixels, fparams,
+                                      4 * (ids.numel() + counts.numel() + zmin.numel()))
+    print(json.dumps({
+        "check": "bigscene kernels vs plain", "envs": int(sat_ops[2].shape[0]),
+        "bodies": n_body, "pairs": int(sat_ops[2].shape[-1]), "kinds": list(kinds),
+        "max_live_pairs": live, "sat_max_abs_err": err_sat, "solve_max_abs_err": err_solve,
+        "sat_ms": sat_ms, "sat_plain_ms": sat_plain_ms, "solve_ms": solve_ms,
+        "solve_plain_ms": solve_plain_ms, **sb, "strip_width": fparams.width,
+        "strip_height": fparams.height, "tiles": fparams.n_tiles, "kc": kc,
+        "tris_in": int(valid.sum()), "listed_clusters": int(counts.sum()),
+        "cluster_max_abs_err": err_cl, "pixels_differing": differ, "cluster_ms": cl_ms,
+        "cluster_plain_ms": cl_plain_ms, "cluster_bound_ms": cl_bound, "cluster_bound_by": cl_by,
+        "card": card}), flush=True)
+    alone += [("bigscene_sat", "planar_sat_kernel",
+               functools.partial(pp.sat_fleet, *sat_ops, kinds)),
+              ("bigscene_solve", "planar_solve_kernel",
+               functools.partial(pp.solve_fleet, *solve_ops, iters)),
+              ("bigscene_clusters", "cluster_raster_kernel",
+               functools.partial(trc.rasterize_clusters, setup, ids, counts, fparams, kc, zmin))]
+
+    # the main path: BIG_STEPS composed sim + render steps, counted
+    routes0 = dict(pp.STEP_ROUTES)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(BIG_STEPS):
+        state, caches, rgb, stats = step(state, caches, lanes, vp)
+    stats = {k: float(v) if k == "rgb_sink" else int(v) for k, v in stats.items()}
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"sat": pp.SAT_KERNEL_LAUNCHES, "solve": pp.SOLVE_KERNEL_LAUNCHES,
+                "middle": pp.MIDDLE_KERNEL_LAUNCHES, "cluster": trc.RASTER_CLUSTERS_LAUNCHES,
+                "staged_steps": pp.STEP_ROUTES["staged"] - routes0["staged"],
+                "fused_steps": pp.STEP_ROUTES["fused"] - routes0["fused"]}
+    print(json.dumps({"metric": "bigscene_steps_per_s", "path": "cuda-staged",
+                      "value": BIG_STEPS / secs, "steps": BIG_STEPS, "seconds": secs,
+                      "strips": BIG_STRIPS, "entities": BIG_STRIPS * BIG_NL,
+                      "frame": [w_px, h_px], "alive": stats["alive"],
+                      "migrated": stats["migrated"], "pair_overflow": stats["pair_overflow"],
+                      "tile_overflow": stats["tile_overflow"],
+                      "halo_dropped": stats["halo_dropped"],
+                      "migration_dropped": stats["migration_dropped"], "launches": launches,
+                      "card": card}), flush=True)
+    want = {"sat": BIG_STEPS, "solve": BIG_STEPS, "middle": 0, "cluster": BIG_STEPS * BIG_STRIPS,
+            "staged_steps": BIG_STEPS, "fused_steps": 0}
+    if launches != want:
+        fail(f"bigscene: launches {launches}, want {want}")
+    if not (torch.isfinite(rgb).all() and tuple(rgb.shape) == (h_px, w_px, 3)
+            and torch.isfinite(state.transform.pos).all() and stats["alive"] > 0):
+        fail("bigscene: rgb or state not finite, or nothing alive")
+    rec["planar_sat"] = {"launches": launches["sat"], "max_abs_err": err_sat, "ms": sat_ms,
+                         "plain_ms": sat_plain_ms, "bound_ms": sb["sat_bound_ms"],
+                         "bound_by": sb["sat_bound_by"], "envs": int(sat_ops[2].shape[0]),
+                         "bodies": n_body, "pairs": int(sat_ops[2].shape[-1])}
+    rec["planar_solve"] = {"launches": launches["solve"], "max_abs_err": err_solve,
+                           "ms": solve_ms, "plain_ms": solve_plain_ms,
+                           "bound_ms": sb["solve_bound_ms"], "bound_by": sb["solve_bound_by"],
+                           "envs": int(sat_ops[2].shape[0]), "bodies": n_body,
+                           "pairs": int(sat_ops[2].shape[-1])}
+    rec["rasterize_clusters"] = {"launches": launches["cluster"], "max_abs_err": err_cl,
+                                 "ms": cl_ms, "plain_ms": cl_plain_ms, "bound_ms": cl_bound,
+                                 "bound_by": cl_by, "width": fparams.width,
+                                 "height": fparams.height}
+    del state, caches, rgb, seen, strips, got, ref
+
+    # ---- 12.2 spatial physics strips through the fused middle ----
+    sp_params = SolverParams(max_pairs=SPATIAL_PAIRS, iterations=6, shape_kinds=("box",))
+    smesh = make_mesh(dp=1, sp=BIG_STRIPS, device=dev)
+    bodies = spatial_world(BIG_STRIPS, dev, make_bodies, BODY_DYNAMIC, BODY_STATIC)
+    sstep = psp.spatial_sharded_step(smesh, sp_params, x0=0.0, shard_width=SPATIAL_WIDTH,
+                                     halo=2.0, halo_cap=32, mig_cap=16)
+    n_sp = SPATIAL_N + 2 * 32
+    if pp.step_route(n_sp, SPATIAL_PAIRS, dev) != "fused":
+        fail("spatial strips: the route is not fused")
+    (bodies, sstats), mids = capture_calls(pp, "middle_operands", lambda: sstep(bodies))
+    mid_ops = mids[0][1][1]
+    err_mid, mlive = check_middle("spatial strips step", mid_ops, sp_params)
+    mid_ms = cuda_ms(lambda: pp.middle(*mid_ops, sp_params), 20)
+    mid_plain_ms = cuda_ms(lambda: pp.middle_reference(*mid_ops, sp_params), 3)
+    mid_bound, mid_by, _, _, _ = middle_bound(mid_ops, sp_params)
+    alone.append(("spatial_middle", "planar_middle_kernel",
+                  functools.partial(pp.middle, *mid_ops, sp_params)))
+    routes0 = dict(pp.STEP_ROUTES)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    migrated = 0
+    for _ in range(SPATIAL_STEPS):
+        bodies, sstats = sstep(bodies)
+        migrated += int(sstats["migrated"])  # a host read a step
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    sl = {"middle": pp.MIDDLE_KERNEL_LAUNCHES, "sat": pp.SAT_KERNEL_LAUNCHES,
+          "fused_steps": pp.STEP_ROUTES["fused"] - routes0["fused"]}
+    sstats = {k: int(v) for k, v in sstats.items()}
+    print(json.dumps({"metric": "spatial_steps_per_s", "path": "cuda-kernel",
+                      "value": SPATIAL_STEPS / secs, "steps": SPATIAL_STEPS, "seconds": secs,
+                      "strips": BIG_STRIPS, "bodies_per_strip": SPATIAL_N,
+                      "pairs": SPATIAL_PAIRS, "migrated": migrated, **sstats,
+                      "launches": sl, "middle_ms": mid_ms, "middle_max_abs_err": err_mid,
+                      "card": card}), flush=True)
+    if sl != {"middle": SPATIAL_STEPS, "sat": 0, "fused_steps": SPATIAL_STEPS}:
+        fail(f"spatial strips: launches {sl} in {SPATIAL_STEPS} steps")
+    if (sstats["halo_dropped"] or sstats["migration_dropped"]
+            or sstats["active"] != BIG_STRIPS * SPATIAL_N
+            or not torch.isfinite(bodies.pos).all()):
+        fail(f"spatial strips: {sstats}")
+    rec["planar_middle"] = {"launches": sl["middle"], "max_abs_err": err_mid, "ms": mid_ms,
+                            "plain_ms": mid_plain_ms, "bound_ms": mid_bound, "bound_by": mid_by,
+                            "envs": int(mid_ops[0].shape[0]), "bodies": n_sp,
+                            "pairs": SPATIAL_PAIRS}
+    del bodies
+
+    # ---- 12.3 the dp-sharded tile-fleet rollout, bitwise the rollout ----
+    env = rlenv.make_fleet("tiles", dev, n_envs=SHARD_ENVS)
+    act = torch.tensor([rlenv.FLEET_ACTIONS["tiles"]], device=dev).repeat(env.n_envs, 1)
+    env.step(act)
+    saved = [pp_clone(x) for x in (env.state, env.cache, env.baked)]
+    rmesh = make_mesh(dp=SHARD_DP, sp=1, device=dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        means, rewards = env.rollout(act, SHARD_RL_STEPS)
+        want_state = pp_clone(env.state)
+        env.state, env.cache, env.baked = (pp_clone(x) for x in saved)
+        ((s_means, s_rewards), rstats), rseen = capture_many(
+            ((rp, "bin_triangles_batched"), (tr, "rasterize_tiles_batched")),
+            lambda: env.rollout_sharded(act, SHARD_RL_STEPS, rmesh))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    unequal = [k for k, (a, b) in {"obs_means": (means, s_means),
+                                   "rewards": (rewards, s_rewards)}.items()
+               if not torch.equal(a, b)]
+    unequal += [f"state.{i}" for i, (a, b) in enumerate(zip(tree_leaves(want_state),
+                                                           tree_leaves(env.state)))
+                if not torch.equal(a, b)]
+    env.state, env.cache, env.baked = saved
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    (_, rw), rstats = env.rollout_sharded(act, SHARD_RL_STEPS, rmesh)
+    rstats = {k: float(v) for k, v in rstats.items()}  # host reads end the run
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rl = {"raster": tr.RASTER_TILES_BATCHED_LAUNCHES, "middle": pp.MIDDLE_KERNEL_LAUNCHES}
+    print(json.dumps({"metric": "rollout_sharded_env_steps_per_sec", "path": "cuda-kernel",
+                      "config": "tiles", "dp": SHARD_DP, "envs": env.n_envs,
+                      "value": env.n_envs * SHARD_RL_STEPS / secs, "steps": SHARD_RL_STEPS,
+                      "seconds": secs, "bit_unequal_vs_rollout": unequal, "stats": rstats,
+                      "launches": rl, "card": card}), flush=True)
+    if unequal:
+        fail(f"rollout_sharded differs from rollout in {unequal[:5]}")
+    if rl != {"raster": SHARD_RL_STEPS, "middle": SHARD_RL_STEPS} or rstats["nan_rollbacks"]:
+        fail(f"rollout_sharded: launches {rl}, stats {rstats}")
+    if rstats["alive"] != float(env.state.alive.sum()) or not torch.isfinite(rw).all():
+        fail(f"rollout_sharded: stats {rstats}")
+    # the tile kernel vs plain on the first sharded step's own operands
+    (setup, aabb, valid, p_r), _ = rseen["bin_triangles_batched"][0]
+    binned, counts, _ = rseen["rasterize_tiles_batched"][0][0]
+    kernel = functools.partial(tr.rasterize_tiles_batched, binned, counts, p_r)
+    work_k = torch.zeros((env.n_envs, p_r.n_tiles), dtype=torch.int32, device=dev)
+    work_p = torch.zeros_like(work_k)
+    won = torch.zeros(binned.shape[:3], dtype=torch.bool, device=dev)
+    plain = lambda w=None: tr.rasterize_tiles_batched_reference(
+        binned, counts, p_r, w, None if w is None else won)
+    ref = plain(work_p)
+    err_t, differ = check_gbuffer("rollout_sharded tiles", kernel(work_k), ref)
+    if differ or not torch.equal(work_k, work_p) or not ref["covered"].any():
+        fail(f"rollout_sharded tiles: {differ} pixels or pass A's work differ from the plain "
+             "version's, or nothing covered")
+    t_ms, t_plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 2)
+    t_bound, t_by, _ = raster_bound(work_k, int(work_k.sum()), int(won.sum()),
+                                    tile_pass_a_pixels(setup, aabb, valid, p_r), p_r,
+                                    4 * counts.numel(), envs=env.n_envs)
+    alone.append(("rollout_sharded_tiles", "tile_raster_kernel", kernel))
+    print(json.dumps({"check": "rasterize_tiles_batched", "path": "rollout_sharded",
+                      "envs": env.n_envs, "dp": SHARD_DP, "max_abs_err": err_t,
+                      "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound,
+                      "bound_by": t_by, "card": card}), flush=True)
+    rec["rasterize_tiles_batched"] = {"launches": rl["raster"], "max_abs_err": err_t,
+                                      "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound,
+                                      "bound_by": t_by, "envs": env.n_envs, "dp": SHARD_DP}
+    del env, saved, want_state, rseen, kernel, binned, counts, setup, aabb, valid, ref
+
+    # ---- 12.4 the multi-shard dry run on the card ----
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(8, dev)
+    print(json.dumps({"check": "dryrun_multichip", **dry,
+                      "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+    return alone, rec
+
+
 def main():
     import torch
 
@@ -885,45 +1242,12 @@ def main():
     sat_plain_ms = cuda_ms(lambda: pp.sat_reference(*sat_ops, kinds), 3)
     solve_ms = cuda_ms(lambda: pp.solve_fleet(*solve_ops, iters), 20)
     solve_plain_ms = cuda_ms(lambda: pp.solve_reference(*solve_ops, iters), 3)
-    # bounds: what the function needs read once, every output written once;
-    # the plain version's operations on the slots that hold work (valid
-    # pairs for the SAT, pairs with a valid contact for the solve). The SAT
-    # needs pvf whole and the ga/gb columns of the pair-valid slots only
-    sat_outs = pp.sat_reference(*sat_ops, kinds)
-    sat_live = (sat_ops[2] > 0.5).float().mean().item()
-    sat_bytes = 4 * (sum(x.numel() for x in (sat_ops[2], *sat_outs))
-                     + (sat_ops[0].numel() + sat_ops[1].numel()) * sat_live)
-    sat_count = count_ops(lambda: pp.sat_reference(*sat_ops, kinds)) * sat_live
-    sat_bound, sat_by = bound(sat_bytes, sat_count)
-    # a slot that is not pair-valid still writes candidate 0's point, normal
-    # and depth, which need 10 of its rows of ga and of gb (center, quat,
-    # size; the shape row only with other kinds than boxes), and fp, 3 more
-    sat_rows = 13 if kinds == ("box",) else 14
-    sat_bytes_every_slot = 4 * (sum(x.numel() for x in (sat_ops[2], *sat_outs))
-                                + 2 * sat_rows * sat_ops[2].numel())
-    sat_bound_every_slot = bound(sat_bytes_every_slot, sat_count)[0]
-    # the solve reads its indices and velocities and writes its outputs
-    # whole; of the pack, every slot reads its validity and impulse rows
-    # (4 quantities x K), and only a slot with a valid contact the rest
-    solve_outs = pp.solve_reference(*solve_ops, iters)
-    jac = solve_ops[0]
-    q_cv = pp._solve_q("cvalid") * 4
-    solve_live = (jac[:, q_cv:q_cv + 4] > 0.5).any(1).float().mean().item()
-    always_rows = 4 * pp._K  # cvalid, ln0, l10, l20: K rows each
-    pack_bytes = 4 * jac.shape[0] * jac.shape[2] * (
-        always_rows + (jac.shape[1] - always_rows) * solve_live)
-    solve_bytes = pack_bytes + 4 * sum(x.numel() for x in (*solve_ops[1:], *solve_outs))
-    solve_count = count_ops(lambda: pp.solve_reference(*solve_ops, iters)) * solve_live
-    solve_bound, solve_by = bound(solve_bytes, solve_count)
+    sb = staged_bounds(sat_ops, solve_ops, kinds, iters)
+    sat_bound, sat_by = sb["sat_bound_ms"], sb["sat_bound_by"]
+    solve_bound, solve_by = sb["solve_bound_ms"], sb["solve_bound_by"]
     print(json.dumps({
-        "sat_ms": sat_ms, "sat_plain_ms": sat_plain_ms, "sat_bound_ms": sat_bound,
-        "sat_bound_by": sat_by, "sat_bytes": sat_bytes, "sat_operations": sat_count,
-        "sat_bound_ms_every_slot_rows": sat_bound_every_slot,
-        "sat_bytes_every_slot_rows": sat_bytes_every_slot,
-        "solve_ms": solve_ms, "solve_plain_ms": solve_plain_ms, "solve_bound_ms": solve_bound,
-        "solve_bound_by": solve_by, "solve_bytes": solve_bytes, "solve_pack_bytes": pack_bytes,
-        "solve_operations": solve_count, "live_pair_share": sat_live,
-        "contact_pair_share": solve_live, "envs": ENVS, "bodies": BODIES, "pairs": 128,
+        "sat_ms": sat_ms, "sat_plain_ms": sat_plain_ms, "solve_ms": solve_ms,
+        "solve_plain_ms": solve_plain_ms, **sb, "envs": ENVS, "bodies": BODIES, "pairs": 128,
         "card": card}), flush=True)
 
     run(pp.step_planar_staged, 3)  # warm: the solve kernel's first launch sets its attributes
@@ -1306,6 +1630,11 @@ def main():
     sandbox_alone, sandbox = sandbox_phase(card)
     alone += sandbox_alone
 
+    # ---- 12. scale-out: the big scene, spatial strips, the sharded fleet ---
+    # (before phase 10, for the same reason)
+    scale_alone, scale_out = scale_out_phase(card)
+    alone += scale_alone
+
     # ---- 10. each kernel alone: phases 3, 4b, 5 and 7's inputs, RL fleets --
     kernel_alone = {}
     for kname, cuda_name, kernel in alone:
@@ -1317,6 +1646,11 @@ def main():
         batched[kname]["kernel_ms"] = kernel_alone[kname]
     sandbox["planar_middle"]["kernel_ms"] = kernel_alone["sandbox_middle"]
     sandbox["rasterize_clusters"]["kernel_ms"] = kernel_alone["sandbox_clusters"]
+    for kname, alone_name in (("planar_sat", "bigscene_sat"), ("planar_solve", "bigscene_solve"),
+                              ("rasterize_clusters", "bigscene_clusters"),
+                              ("planar_middle", "spatial_middle")):
+        scale_out[kname]["kernel_ms"] = kernel_alone[alone_name]
+    scale_out["rasterize_tiles_batched"]["kernel_ms"] = kernel_alone["rollout_sharded_tiles"]
     rl_alone = {}
     for name, (rops, solver) in rl_middle.items():
         k_ms = kernel_ms(functools.partial(pp.middle, *rops, solver), 20,
@@ -1337,26 +1671,29 @@ def main():
          "replaces": "scx/physics/planar.py:1786", "launches": launches,
          "max_abs_err": err_main, "ms": middle_ms, "kernel_ms": kernel_alone["planar_middle"],
          "plain_ms": plain_ms, "bound_ms": mid_bound, "bound_by": mid_by, "library_ms": None,
-         "rl_fleets": rl_alone, "sandbox": sandbox["planar_middle"]},
+         "rl_fleets": rl_alone, "sandbox": sandbox["planar_middle"],
+         "spatial_strips": scale_out["planar_middle"]},
         {"name": "planar_sat", "route": "cuda",
          "source": "scx_torch/physics/csrc/planar_staged.cu",
          "replaces": "scx/physics/planar.py:818", "launches": sat_launches,
          "max_abs_err": err_sat, "ms": sat_ms, "kernel_ms": kernel_alone["planar_sat"],
          "plain_ms": sat_plain_ms,
-         "bound_ms": sat_bound, "bound_by": sat_by, "library_ms": None},
+         "bound_ms": sat_bound, "bound_by": sat_by, "library_ms": None,
+         "bigscene": scale_out["planar_sat"]},
         {"name": "planar_solve", "route": "cuda",
          "source": "scx_torch/physics/csrc/planar_staged.cu",
          "replaces": "scx/physics/planar.py:1283", "launches": solve_launches,
          "max_abs_err": err_solve, "ms": solve_ms, "kernel_ms": kernel_alone["planar_solve"],
          "plain_ms": solve_plain_ms,
-         "bound_ms": solve_bound, "bound_by": solve_by, "library_ms": None},
+         "bound_ms": solve_bound, "bound_by": solve_by, "library_ms": None,
+         "bigscene": scale_out["planar_solve"]},
         {"name": "rasterize_clusters", "route": "cuda",
          "source": "scx_torch/ops/csrc/raster.cu",
          "replaces": "scx/ops/raster_clusters.py:404",
          "launches": frame_launches["render_frame_baked"], "max_abs_err": err_cl,
          "ms": cl_ms, "kernel_ms": kernel_alone["rasterize_clusters"], "plain_ms": cl_plain_ms,
          "bound_ms": cl_bound, "bound_by": cl_by, "library_ms": None,
-         "sandbox": sandbox["rasterize_clusters"]},
+         "sandbox": sandbox["rasterize_clusters"], "bigscene": scale_out["rasterize_clusters"]},
         {"name": "rasterize_tiles", "route": "cuda", "source": "scx_torch/ops/csrc/raster.cu",
          "replaces": "scx/ops/raster.py:155", "launches": tile_launches,
          "max_abs_err": err_t, "ms": t_ms, "kernel_ms": kernel_alone["rasterize_tiles"],
@@ -1368,7 +1705,8 @@ def main():
          **batched["rasterize_clusters_batched"], "library_ms": None},
         {"name": "rasterize_tiles_batched", "route": "cuda",
          "source": "scx_torch/ops/csrc/raster.cu", "replaces": "scx/ops/raster.py:263",
-         **batched["rasterize_tiles_batched"], "library_ms": None},
+         **batched["rasterize_tiles_batched"], "library_ms": None,
+         "rollout_sharded": scale_out["rasterize_tiles_batched"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

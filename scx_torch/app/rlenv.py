@@ -17,9 +17,11 @@ step loop on the same device (scx_torch.rl builds PPO on them). obs_mode
 "state" gives STATE_OBS_DIM floats per agent and runs no raster at all;
 n_agents = K > 1 puts K policy cars into each env (actions [E, K, 4],
 rewards [E, K], RGB-D observations [E, K, H, W, 4] with the K chase
-cameras folded into the batched raster's env axis). scx's sharded
-rollouts (rollout_sharded, thread_baked) and its launch chunker are not
-ported.
+cameras folded into the batched raster's env axis). Scale-out:
+rollout_sharded runs the envs split over a mesh's 'dp' shards
+(scx_torch.parallel.mesh) with the fleet's stats summed over them, and
+make_trajectory_rollout(thread_baked=True) takes the bake as an argument,
+as the sharded PPO step threads it. scx's launch chunker is not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from scx_torch import resolve_device
 from scx_torch.app.sandbox import SimParams, make_sim_tick, spawn_player_vehicle
 from scx_torch.core import math3d as m3
 from scx_torch.core.config import EngineConfig, TrafficConfig, WorldPartitionConfig
+from scx_torch.core.tree import tree_map
 from dataclasses import replace
 
 from scx_torch.physics.queries import raycast
@@ -45,6 +48,8 @@ from scx_torch.traffic import lanes as ln
 from scx_torch.traffic.lanes import LaneGraphBuilder
 from scx_torch.world import procgen
 from scx_torch.world.culling import cull_entities, emit_draws
+
+_OWN = object()  # "this env's own bake" where a bake may be passed in
 
 
 def squash_raw_actions(raw: torch.Tensor) -> torch.Tensor:
@@ -320,13 +325,16 @@ class CityRLEnv:
         return (torch.cat([s_setup, d_setup], -2), torch.cat([s_aabb, d_aabb], -2),
                 torch.cat([s_valid, d_valid], -1), self._params_bin)
 
-    def observe(self, state: ent.EntityState | None = None, *, plain: bool = False):
+    def observe(self, state: ent.EntityState | None = None, *, plain: bool = False,
+                baked=_OWN):
         """RGB-D observations of a fleet state (default: the current one):
         (obs [E, H, W, 4], or [E, K, H, W, 4] with K > 1 agents; the
         G-buffer dict over the folded [E*K] views; raster stats).
-        plain=True rasterizes with the kernels' plain PyTorch versions."""
+        plain=True rasterizes with the kernels' plain PyTorch versions;
+        `baked` replaces the env's own bake (the rows of a shard)."""
         state = self.state if state is None else state
-        setup, aabb, valid, params = self.setup_obs(state, self.baked)
+        baked = self.baked if baked is _OWN else baked
+        setup, aabb, valid, params = self.setup_obs(state, baked)
         g, stats = raster_gbuffer_batched(setup, aabb, valid, params, plain=plain)
         obs = torch.cat([g["color"], g["depth"][..., None]], dim=-1)
         if self.n_agents > 1:
@@ -378,15 +386,17 @@ class CityRLEnv:
             near_dist[..., None], ray_dist[..., None],
         ], dim=-1)
 
-    def _obs(self, state: ent.EntityState) -> torch.Tensor:
+    def _obs(self, state: ent.EntityState, baked=_OWN) -> torch.Tensor:
         """Observations by obs_mode: rgbd [E(, K), H, W, 4]; state
         [E(, K), STATE_OBS_DIM]. The agent axis is there when K > 1."""
         if self.obs_mode == "state":
             obs = self._state_obs(state)
             return obs[:, 0] if self.n_agents == 1 else obs
-        return self.observe(state)[0]
+        return self.observe(state, baked=baked)[0]
 
-    def _step_impl(self, batch, cache, actions):
+    def _step_impl(self, batch, cache, actions, baked=_OWN):
+        """One step of the fleet: (batch, cache, obs, reward, info, ok [E]:
+        the envs not rolled back)."""
         if self.n_agents > 1:
             # the extra agents' inputs go in first; the tick then writes
             # agent 0's (the player's)
@@ -405,11 +415,11 @@ class CityRLEnv:
         def keep(n, o):
             return torch.where(ok.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
 
-        batch = ent.tree_map(keep, new_batch, batch)
-        cache = ent.tree_map(keep, new_cache, cache)
+        batch = tree_map(keep, new_batch, batch)
+        cache = tree_map(keep, new_cache, cache)
         info = {"nan_rollbacks": (~ok).sum(dtype=torch.int32),
                 "pair_overflow": counts["pair_overflow"].max()}
-        obs = self._obs(batch)
+        obs = self._obs(batch, baked)
         # reward: forward progress per agent (m per step), [E] or [E, K]
         if self.obs_mode == "state":
             fwd_speed = obs[..., 5]  # the state observation carries it
@@ -421,7 +431,7 @@ class CityRLEnv:
             if self.n_agents == 1:
                 fwd_speed = fwd_speed[:, 0]
         reward = fwd_speed * (self.cfg.physics.fixed_dt * self.substeps)
-        return batch, cache, obs, reward, info
+        return batch, cache, obs, reward, info, ok
 
     # ------------------------------------------------------------------
     def reset(self) -> torch.Tensor:
@@ -440,28 +450,82 @@ class CityRLEnv:
         """actions [E, 4] (or [E, K, 4]) -> (obs, reward [E] or [E, K]);
         reads the step's info to the host (last_info)."""
         actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
-        self.state, self.cache, obs, reward, info = self._step_impl(
+        self.state, self.cache, obs, reward, info, _ = self._step_impl(
             self.state, self.cache, actions)
         self.last_info = {k: int(v) for k, v in info.items()}
         return obs, reward
+
+    def _rollout_impl(self, batch, cache, actions, length: int, baked):
+        """`length` steps of the fleet `batch`: (batch, cache, rollbacks per
+        env [E] i32, the largest pair overflow, obs_means [L, E], rewards
+        [L, E])."""
+        rolled = torch.zeros(batch.alive.shape[:1], dtype=torch.int32, device=self.device)
+        overflow = torch.zeros((), dtype=torch.int32, device=self.device)
+        means, rewards = [], []
+        for _ in range(length):
+            batch, cache, obs, reward, info, ok = self._step_impl(batch, cache, actions, baked)
+            means.append(obs.reshape(obs.shape[0], -1).mean(-1))
+            rewards.append(reward)
+            rolled = rolled + (~ok).to(torch.int32)
+            overflow = torch.maximum(overflow, info["pair_overflow"])
+        return batch, cache, rolled, overflow, torch.stack(means), torch.stack(rewards)
 
     def rollout(self, actions, length: int = 10):
         """`length` full steps (sim + traffic + render) chained on the
         device, observations consumed there (a per-env mean); one host sync
         at the end. Returns (obs_means [L, E], rewards [L, E])."""
         actions = torch.as_tensor(actions, dtype=torch.float32, device=self.device)
-        nans = torch.zeros((), dtype=torch.int32, device=self.device)
-        overflow = torch.zeros((), dtype=torch.int32, device=self.device)
-        means, rewards = [], []
-        for _ in range(length):
-            self.state, self.cache, obs, reward, info = self._step_impl(
-                self.state, self.cache, actions)
-            means.append(obs.reshape(obs.shape[0], -1).mean(-1))
-            rewards.append(reward)
-            nans = nans + info["nan_rollbacks"]
-            overflow = torch.maximum(overflow, info["pair_overflow"])
-        self.last_info = {"nan_rollbacks": int(nans), "pair_overflow": int(overflow)}
-        return torch.stack(means), torch.stack(rewards)
+        self.state, self.cache, rolled, overflow, means, rewards = self._rollout_impl(
+            self.state, self.cache, actions, length, self.baked)
+        self.last_info = {"nan_rollbacks": int(rolled.sum()), "pair_overflow": int(overflow)}
+        return means, rewards
+
+    def rollout_sharded(self, actions, length: int = 10, mesh=None):
+        """The rollout with the env axis split over the mesh's 'dp' shards
+        (scx_torch.parallel.mesh): the same steps as `rollout` per shard,
+        the fleet's telemetry summed over the shards in shard order.
+
+        Per-env computation is untouched, so results are bitwise equal to
+        `rollout` on the same envs. With local shards the shards are the
+        env axis itself: one pass over every env. With rank shards each
+        rank steps its envs and keeps them: the state stays sharded (the
+        env's state, cache and bake become the rank's part at the first
+        call, while they hold every env), and `mesh.gather` assembles it. The default
+        mesh is one local 'dp' shard on the env's device.
+        Returns ((obs_means [L, E_local], rewards [L, E_local]), stats
+        {"alive", "reward_sum", "player_speed", "nan_rollbacks"}: scalars
+        of the whole fleet)."""
+        from scx_torch.parallel.mesh import make_mesh, shard_env_batch
+
+        mesh = make_mesh(device=self.device) if mesh is None else mesh
+        dp = mesh.shape["dp"]
+        if self.n_envs % dp:
+            raise ValueError(f"n_envs {self.n_envs} not divisible by dp={dp}")
+        if self.state.alive.shape[0] == self.n_envs:  # not yet the process's part
+            self.state = shard_env_batch(self.state, mesh)
+            self.cache = shard_env_batch(self.cache, mesh)
+            if self.baked is not None:
+                self.baked = shard_env_batch(self.baked, mesh)
+        acts = shard_env_batch(torch.as_tensor(actions, dtype=torch.float32), mesh)
+        self.state, self.cache, rolled, overflow, means, rewards = self._rollout_impl(
+            self.state, self.cache, acts, length, self.baked)
+        self.last_info = {"nan_rollbacks": int(mesh.psum(
+            mesh.per_shard(rolled, "dp").sum(-1), "dp")),
+            "pair_overflow": int(mesh.pmax(overflow[None], "dp"))}
+
+        def per_shard_sum(x):
+            # each shard's envs as one contiguous block, summed as one
+            # shard holding them alone sums them
+            return torch.stack([c.contiguous().sum() for c in mesh.per_shard(x, "dp")])
+
+        speed = torch.linalg.vector_norm(self.state.body.vel[:, self.player], dim=-1)
+        stats = {
+            "alive": mesh.per_shard(self.state.alive, "dp").sum((1, 2), dtype=torch.int32),
+            "reward_sum": per_shard_sum(rewards.transpose(0, 1)),
+            "player_speed": per_shard_sum(speed),
+            "nan_rollbacks": mesh.per_shard(rolled, "dp").sum(-1),
+        }
+        return (means, rewards), {k: mesh.psum(v, "dp") for k, v in stats.items()}
 
     def _count(self, info) -> None:
         """Adds one step's info to the counts the policy and trajectory
@@ -505,7 +569,8 @@ class CityRLEnv:
             for _ in range(length):
                 actions, logp = policy(params, obs, generator)
                 with torch.no_grad():
-                    batch, cache, obs, rew, info = self._step_impl(batch, cache, actions.detach())
+                    batch, cache, obs, rew, info, _ = self._step_impl(batch, cache,
+                                                                     actions.detach())
                     self._count(info)
                 rews.append(rew)
                 logps.append(logp)
@@ -514,7 +579,7 @@ class CityRLEnv:
 
         return fn
 
-    def make_trajectory_rollout(self, actor_critic, length: int):
+    def make_trajectory_rollout(self, actor_critic, length: int, thread_baked: bool = False):
         """Trajectory collection on the device for actor-critic methods.
 
         `actor_critic(params, obs, generator) -> (actions, logp, value,
@@ -526,15 +591,19 @@ class CityRLEnv:
         carries a graph: the whole collection runs under torch.no_grad(),
         and the update differentiates `apply(params, store)` instead. The
         steps' NaN rollbacks and pair overflow are counted on the env
-        (take_rollout_info)."""
+        (take_rollout_info).
+
+        thread_baked=True returns fn(batch, cache, params, generator, baked)
+        instead, taking the static-bake columns of `batch`'s envs as an
+        argument (the sharded PPO step passes each shard's)."""
 
         @torch.no_grad()
-        def fn(batch, cache, params, generator):
-            obs = self._obs(batch)
+        def impl(batch, cache, params, generator, baked):
+            obs = self._obs(batch, baked)
             stores, logps, values, rews = [], [], [], []
             for _ in range(length):
                 actions, logp, value, store = actor_critic(params, obs, generator)
-                batch, cache, obs, rew, info = self._step_impl(batch, cache, actions)
+                batch, cache, obs, rew, info, _ = self._step_impl(batch, cache, actions, baked)
                 self._count(info)
                 stores.append(store)
                 logps.append(logp)
@@ -546,7 +615,10 @@ class CityRLEnv:
                     "last_value": last_value}
             return batch, cache, traj
 
-        return fn
+        if thread_baked:
+            return impl
+        return lambda batch, cache, params, generator: impl(batch, cache, params, generator,
+                                                            self.baked)
 
 
 # The RL fleet's two configurations at full width: bench_rlenv.py's default

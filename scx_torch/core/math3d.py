@@ -125,6 +125,15 @@ def mat4_trs(pos, rot_euler, scale) -> torch.Tensor:
                     mat4_mul(mat4_rotation_xyz(rot_euler), mat4_scale(scale)))
 
 
+def mat4_trs_quat(pos, quat, scale) -> torch.Tensor:
+    """T @ R(q) @ S, the quaternion-native form."""
+    m = torch.zeros(pos.shape[:-1] + (4, 4), dtype=pos.dtype, device=pos.device)
+    m[..., 0:3, 0:3] = quat_to_mat3(quat) * scale[..., None, :]
+    m[..., 0:3, 3] = pos
+    m[..., 3, 3] = 1.0
+    return m
+
+
 def mat4_perspective_rh_zo(fovy: float, aspect: float, z_near: float, z_far: float,
                            flip_y: bool = True, device=None) -> torch.Tensor:
     """Right-handed, depth 0..1, optional Vulkan Y flip. Entries are

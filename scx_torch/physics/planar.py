@@ -1028,6 +1028,74 @@ def _middle_check_shape(device_index: int, box_only: int, nb: int, p: int) -> No
         )
 
 
+# Shared memory per env (bytes) of the fused middle and of the fleet solve.
+# On the card the route reads the kernels' own (scx_planar_*_smem_bytes, from
+# csrc/planar_middle.cu::middle_layout and csrc/planar_staged.cu::
+# solve_layout); these copies, word for word, stand in for them on the CPU,
+# where no kernel is built, so that the CPU takes the route the card would.
+# The emulated kernel tests hold both copies equal. Neither layout depends
+# on the shape kinds.
+H100_OPTIN_SMEM = 232_448  # the opt-in shared memory per block of an H100
+_KERNEL_THREADS = 128      # one CTA of 4 warps per env, in both kernels
+_STG_WORDS = 35            # a live pair's staged SAT result in the middle
+
+
+def middle_smem_bytes(n: int, p: int) -> int:
+    """Shared memory one env of the fused middle takes at N bodies, P slots."""
+    reg_pairs = min(p, _KERNEL_THREADS // 4)
+    upd = 0 if 14 * p <= _STG_WORDS * reg_pairs else 14 * p  # over the staging where it fits
+    return 4 * (8 * n + _STG_WORDS * p + upd + 8 * p + 1 + _KERNEL_THREADS // 32 + 1)
+
+
+def solve_smem_bytes(n: int, p: int) -> int:
+    """Shared memory one env of the fleet solve takes at N bodies, P slots."""
+    return 4 * (7 * n + 21 * p + 1 + _KERNEL_THREADS // 32 + 1)
+
+
+@functools.cache
+def _card_smem_limit(device_index: int) -> int:
+    """The opt-in shared memory per block of the card, as the kernels read it."""
+    max_smem = ctypes.c_int()
+    with torch.cuda.device(device_index):
+        err = _build.load().scx_planar_middle_prepare(1, 0, ctypes.byref(max_smem))
+    if err != 0:
+        raise RuntimeError(f"shared-memory query failed: CUDA error {err}")
+    return max_smem.value
+
+
+@functools.cache
+def _route(n: int, p: int, limit: int, on_card: bool) -> str:
+    if on_card:
+        lib = _build.load()
+        fused, solve = lib.scx_planar_middle_smem_bytes(n, p), lib.scx_planar_solve_smem_bytes(n, p)
+    else:
+        fused, solve = middle_smem_bytes(n, p), solve_smem_bytes(n, p)
+    if fused <= limit:
+        return "fused"
+    if solve <= limit:
+        return "staged"
+    raise ValueError(
+        f"no physics kernel can take N={n}, P={p}: one CTA per env needs {fused} B "
+        f"(fused middle) or {solve} B (staged solve) of shared memory, past the "
+        f"{limit} B of a block")
+
+
+def step_route(n: int, p: int, device, smem_limit=None) -> str:
+    """The route of a step of N bodies and P pair slots per env, decided
+    before any launch from the two kernels' shared-memory layouts: "fused"
+    (the fused middle) where one env of it fits a block's opt-in shared
+    memory, else "staged" (the SAT kernel, the warm gather, the solve
+    kernel), as scx falls back to its staged kernels where the fused one
+    is rejected. Raises where neither fits. The limit is the card's; on the
+    CPU it is `smem_limit` (default: an H100's), so that the CPU takes the
+    route the card would."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    if smem_limit is None:
+        smem_limit = _card_smem_limit(device.index or 0) if on_card else H100_OPTIN_SMEM
+    return _route(n, p, int(smem_limit), on_card)
+
+
 def middle(rows, ia, ib, pvf, prev, vw0, params: SolverParams):
     """The fused middle of the step over a fleet (see middle_reference for
     shapes). CPU tensors take middle_reference; CUDA tensors launch the
@@ -1119,14 +1187,32 @@ def _finish_step(b: PlanarBodies, params: SolverParams, vel: V3, omega: V3, cnt,
     return planar_integrate_positions(b, params.dt), stats
 
 
+STEP_ROUTES = {"fused": 0, "staged": 0}  # steps per route, never reset here
+
+
 def step_planar_cached(b: PlanarBodies, params: SolverParams,
-                       cache: PlanarCache, key_id=None, *, middle_fn=middle):
+                       cache: PlanarCache, key_id=None, *, middle_fn=middle,
+                       smem_limit=None):
     """One fixed physics step of a fleet: integrate -> broadphase -> warm
     key match -> fused middle -> sleep -> integrate positions. Returns
     (bodies, cache, stats) with per-env [E] stats.
 
-    middle_fn is the fused middle to run; `middle_reference` lets a
-    caller time the plain version on the card."""
+    Where one env of the fused middle does not fit a block's shared memory
+    (`step_route`), the step is `step_planar_staged`'s: the same results up
+    to the rounding of the per-body sums. middle_fn is the fused middle to
+    run; `middle_reference` lets a caller time the plain version on the
+    card, and raises on the staged route, which has no middle to bind.
+    smem_limit: see step_route."""
+    route = step_route(b.n, params.max_pairs, b.shape.device, smem_limit)
+    if route == "staged":
+        if middle_fn is not middle:
+            raise ValueError(
+                f"step_planar_cached: N={b.n}, P={params.max_pairs} takes the staged route, "
+                "where middle_fn does not apply; call step_planar_staged with sat_fn and "
+                "solve_fn to choose its kernels")
+        STEP_ROUTES[route] += 1
+        return step_planar_staged(b, params, cache, key_id)
+    STEP_ROUTES[route] += 1
     b, operands, (ka, kb, pair_valid, n_cand) = middle_operands(
         b, params, cache, key_id
     )

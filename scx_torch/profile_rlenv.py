@@ -41,6 +41,7 @@ import torch
 
 from scx_torch.app import rlenv
 from scx_torch.core import math3d as m3
+from scx_torch.core.tree import tree_map
 from scx_torch.ops import raster as tr
 from scx_torch.ops import raster_clusters as trc
 from scx_torch.physics import planar as pp
@@ -100,7 +101,7 @@ def _stages(env, act):
         ok = (fin(s3.transform.pos) & fin(s3.transform.rot) & fin(s3.body.vel)
               & fin(s3.body.omega))
         keep = lambda n, o: torch.where(ok.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
-        b = ent.tree_map(keep, s3, s0)
+        b = tree_map(keep, s3, s0)
         rot = b.transform.rot[:, env.player]
         z = torch.tensor([0.0, 0.0, 1.0], device=rot.device).expand(rot.shape[:-1] + (3,))
         fwd = m3.quat_rotate(rot, z)
@@ -185,7 +186,7 @@ def main(argv=None) -> int:
         env.step(act)
 
     def step():
-        env.state, env.cache, obs, reward, _ = env._step_impl(env.state, env.cache, act)
+        env.state, env.cache, obs, reward, _, _ = env._step_impl(env.state, env.cache, act)
         return obs
 
     prof, wall, obs = _profile(step, STEPS)

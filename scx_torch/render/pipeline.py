@@ -644,6 +644,59 @@ def _raster_and_shade(setup, aabb, valid, params, materials, textures, plain=Fal
     return rgb, gbuffer, stats
 
 
+# columns of the (b, c) pairs of every affine screen plane in the setup
+# buffer: value(x, y) = a x + b y + c (lambda0/1, z, 1/w, rgb, uv)
+_PLANE_OFFSETS = (F_L0, F_L1, F_Z, F_IW, F_COL, F_COL + 3, F_COL + 6, F_UV, F_UV + 3)
+_PLANE_B_COLS = [o + 1 for o in _PLANE_OFFSETS]
+_PLANE_C_COLS = [o + 2 for o in _PLANE_OFFSETS]
+
+
+def shift_setup_rows(setup, aabb, valid, row0, strip_rows: int):
+    """Translate the screen-space setup down by `row0` pixels (y' = y - row0).
+
+    Every interpolation plane is affine in y, so the translation is
+    c' = c + b row0 on nine (b, c) column pairs: the full-frame raster
+    kernels then evaluate the strip [row0, row0 + strip_rows) at local
+    coordinates unchanged. Triangles wholly outside the strip are
+    invalidated (the binners clamp tile ranges, so an off-strip box would
+    otherwise land in an edge tile)."""
+    y0 = torch.as_tensor(row0, dtype=_F32, device=setup.device)
+    setup = setup.clone()
+    setup[..., _PLANE_C_COLS] += setup[..., _PLANE_B_COLS] * y0
+    aabb = aabb - torch.tensor([0.0, 1.0, 0.0, 1.0], device=aabb.device) * y0
+    valid = valid & (aabb[..., 3] >= 0.0) & (aabb[..., 1] < strip_rows)
+    return setup, aabb, valid
+
+
+def render_setup_rows(setup, aabb, valid, params: RasterParams, row0, strip_rows: int,
+                      materials: Materials | None = None, textures=None):
+    """Bin, rasterize and shade only rows [row0, row0 + strip_rows) of a
+    full-frame setup: (rgb [strip_rows, W, 3], gbuffer, stats), through the
+    single-frame kernel (one launch per strip). `params` is the full
+    frame's; strip_rows must be a multiple of its tile_h."""
+    if strip_rows % params.tile_h:
+        raise ValueError(f"strip of {strip_rows} rows does not align to tile_h {params.tile_h}")
+    setup, aabb, valid = shift_setup_rows(setup, aabb, valid, row0, strip_rows)
+    return _raster_and_shade(setup, aabb, valid, params.replace(height=strip_rows), materials,
+                             textures)
+
+
+def render_frame_rows(draws: DrawList, pool: MeshPool, view_proj, params: RasterParams,
+                      row0, strip_rows: int, materials: Materials | None = None,
+                      textures=None):
+    """A frame's strip: rasterize ONLY rows [row0, row0 + strip_rows).
+
+    The 'sp'-axis renderer (one frame split over strips): the whole
+    geometry setup against the full viewport, then binning and raster of
+    the strip's part of the tile lattice via shift_setup_rows. strip_rows
+    must be a multiple of tile_h; `params` is the full frame's."""
+    if params.use_clusters and params.sort_draws:
+        draws = sort_draws_spatial(draws, view_proj, params)
+    setup, aabb, valid = setup_triangles(draws, pool, view_proj, params)
+    return render_setup_rows(setup, aabb, valid, params, row0, strip_rows, materials,
+                             textures)
+
+
 def raster_gbuffer_batched(setup, aabb, valid, params: RasterParams, *, plain: bool = False):
     """Env-batched bin + rasterize -> (gbuffer, stats); setup [E, T, F].
 

@@ -10,7 +10,7 @@ The u32 columns of scx (`generation`, `components`, `name_hash`,
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields, is_dataclass, replace
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -140,18 +140,6 @@ class EntityState:
     @property
     def capacity(self) -> int:
         return self.alive.shape[-1]
-
-
-def tree_map(fn, *states):
-    """fn over the tensors of one or more states of the same structure
-    (nested dataclasses), into a new state."""
-    first = states[0]
-    if is_dataclass(first):
-        return replace(first, **{
-            f.name: tree_map(fn, *(getattr(s, f.name) for s in states))
-            for f in fields(first)
-        })
-    return fn(*states)
 
 
 def alloc_entity_state(capacity: int, envs: int, device=None) -> EntityState:

@@ -27,7 +27,10 @@ def test_port_imports_neither_jax_nor_scx():
                                                                    "scx_torch.")]
     assert "scx_torch.app.rlenv" in mods and len(mods) > 30
     for new in ("scx_torch.rl.gae", "scx_torch.rl.ppo", "scx_torch.rl.gymenv",
-                "scx_torch.rl.train_ppo"):
+                "scx_torch.rl.train_ppo", "scx_torch.core.tree", "scx_torch.parallel",
+                "scx_torch.parallel.mesh",
+                "scx_torch.parallel.spatial", "scx_torch.parallel.bigscene",
+                "scx_torch.parallel.streamed_bigscene", "scx_torch.parallel.dryrun"):
         assert new in mods, new
     out = subprocess.run([sys.executable, "-c", _PROBE, *mods, "chip_smoke"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=True)

@@ -29,6 +29,8 @@ SRC = Path(tp.__file__).resolve().parent / "csrc" / "planar_middle.cu"
 ALL_KINDS = ("box", "sphere", "capsule")
 
 _TAIL = r"""
+extern "C" long long emu_smem(int n, int p) { return (long long)middle_smem_bytes(n, p); }
+
 extern "C" int emu_middle(const float* rows, const int* ia, const int* ib, const float* pvf,
                           const float* prev, const float* vw0, float* vwc, float* lam,
                           float* cand, float* valid, float* trig, int e, int n, int p,
@@ -55,7 +57,21 @@ def emulated(tmp_path_factory):
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.emu_middle.argtypes = [vp] * 11 + [i32] * 5 + [f32] * 5
     so.emu_middle.restype = i32
+    so.emu_smem.argtypes = [i32, i32]
+    so.emu_smem.restype = ctypes.c_longlong
     return so
+
+
+def test_smem_layout_matches_python(emulated):
+    """The step's route is decided in Python from the middle's shared memory
+    per env (planar.middle_smem_bytes): the same bytes as the kernel's
+    middle_layout, on both sides of the staging overlay (P <= 80) and at
+    the limits its header states."""
+    for n, p in ((64, 128), (64, 80), (64, 81), (1, 1), (704, 2048), (6351, 128),
+                 (64, 1010), (4096, 256), (576, 256)):
+        assert emulated.emu_smem(n, p) == tp.middle_smem_bytes(n, p), (n, p)
+    assert tp.middle_smem_bytes(6351, 128) <= tp.H100_OPTIN_SMEM < tp.middle_smem_bytes(6352, 128)
+    assert tp.middle_smem_bytes(64, 1010) <= tp.H100_OPTIN_SMEM < tp.middle_smem_bytes(64, 1011)
 
 
 def _run(so, ops, params):

@@ -29,6 +29,8 @@ ALL_KINDS = ("box", "sphere", "capsule")
 _TAIL = r"""
 extern "C" void emu_layout(int* out) { planar_layout(out); }
 
+extern "C" long long emu_solve_smem(int n, int p) { return (long long)solve_smem_bytes(n, p); }
+
 extern "C" int emu_sat(const float* ga, const float* gb, const float* pvf, unsigned* out, int e,
                        int p, int box_only) {
   long long total = (long long)e * p;
@@ -58,7 +60,19 @@ def emulated(tmp_path_factory):
     so.emu_sat.argtypes = [vp] * 4 + [i32] * 3
     so.emu_solve.argtypes = [vp] * 6 + [i32] * 4
     so.emu_layout.argtypes = [ctypes.POINTER(i32)]
+    so.emu_solve_smem.argtypes = [i32, i32]
+    so.emu_solve_smem.restype = ctypes.c_longlong
     return so
+
+
+def test_solve_smem_layout_matches_python(emulated):
+    """The staged route is taken where the fleet solve's shared memory per
+    env (planar.solve_smem_bytes) fits: the same bytes as the kernel's
+    solve_layout, at the limits its header states."""
+    for n, p in ((64, 128), (1, 1), (704, 2048), (7916, 128), (64, 2745), (512, 256)):
+        assert emulated.emu_solve_smem(n, p) == tp.solve_smem_bytes(n, p), (n, p)
+    assert tp.solve_smem_bytes(7916, 128) <= tp.H100_OPTIN_SMEM < tp.solve_smem_bytes(7917, 128)
+    assert tp.solve_smem_bytes(64, 2745) <= tp.H100_OPTIN_SMEM < tp.solve_smem_bytes(64, 2746)
 
 
 def test_cuda_layout_matches_python(emulated):
