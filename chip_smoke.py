@@ -111,16 +111,43 @@ fleet -- in phases and exits non-zero at the first failure:
      least 9 active sectors and some traffic; the viewer writes its frames
      under build/sandbox_frames; prints the `sandbox_fps` line (frames/s,
      baked and not, pair_overflow, the three slowest systems, the kernels'
-     entry ms at these shapes).
+     entry ms at these shapes);
+ 12. scale-out (run before phase 10): the big scene, spatial strips, the
+     dp-sharded tile fleet and the dry run (scale_out_phase);
+ 13. the tools (run after phase 12, before phase 10): (1) the world
+     editor's EditorSession on the card over a world root under build/
+     written from the port's procgen, its document filled to the editor's
+     draw cap (256 instances) and driven by keys (place, pick,
+     multi-select, translate / rotate / scale drags with snap, undo /
+     redo, save); at 320x176 and 1280x720 the viewport's G-buffer from
+     the cluster kernel must equal the plain rasterizer's bit for bit,
+     and the saved sector streamed into a WorldPartition and rendered
+     through the runtime path with the same camera must be pixel-identical
+     to the viewport; one cluster launch per frame; prints
+     `editor_frame_ms` (render(): the frame, its lines and the host copy)
+     and `scene_view_ms` (the frame on the card alone, synchronized);
+     (2) the live-tuning console on phase 11's
+     sandbox: pause (no pose moves over 3 frames), a tuning column, a
+     tick rebuild, `set physics.max_pairs` 512 / 2048 / 256 moving the
+     next frames' steps across the staged, plain and fused routes (counted
+     in planar.STEP_ROUTES and in the kernels' launches), a raycast, the
+     read-outs, save / load; (3) Sandbox(capacity=8192), whose steps fit
+     neither physics kernel's shared memory and take the plain route (F1):
+     the SAT kernel and the solve kernel with its work in global memory,
+     one launch each per step, a few frames with their ms; both kernels
+     against their plain versions on a step of it with a valid contact
+     (phase 4b's contracts), timed alone in phase 10.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A kernel's `ms` is its entry point's
 time with CUDA events around 20 calls; every kernel adds phase 10's
 `kernel_ms`, the middle kernel its RL fleets' too, and the middle and
-cluster kernels their sandbox record (`sandbox`). Phase 3 prints the
-physics kernels' shared memory per env and the CTAs (envs) and warps one
-SM holds at the fleets' shapes (the SAT kernel's per CTA of 256 pair
-slots).
+cluster kernels their sandbox record (`sandbox`), the cluster kernel its
+editor record (`editor`, both viewport sizes), the SAT and solve kernels
+their plain-route record (`plain_route`, the F1 sandbox's step). Phase 3
+prints the physics kernels' shared memory per env and the CTAs (envs) and
+warps one SM holds at the fleets' shapes (the SAT kernel's per CTA of 256
+pair slots).
 Nothing of JAX is imported.
 """
 
@@ -148,6 +175,14 @@ BIG_STRIPS, BIG_NL, BIG_NB, BIG_NT, BIG_NV, BIG_STEPS = 4, 512, 400, 48, 8, 5
 BIG_FRAME = (1280, 768)
 SPATIAL_N, SPATIAL_WIDTH, SPATIAL_PAIRS, SPATIAL_STEPS = 512, 64.0, 256, 10
 SHARD_DP, SHARD_RL_STEPS, SHARD_ENVS = 4, 3, None  # None: the tile fleet's 4096 envs
+# phase 13: the editor's viewport sizes (its default, and 720p), the
+# instances its document is filled to (its draw cap), the timed frames per
+# size; the console's frames per check; the F1 sandbox's capacity and frames
+EDITOR_SIZES = ((320, 176), (1280, 720))
+EDITOR_DRAW_CAP, EDITOR_FRAMES = 256, 20
+CONSOLE_FRAMES = 3
+F1_CAPACITY, F1_FRAMES = 8192, 6
+F1_SEARCH_FRAMES = 120  # frames to find an F1 step with an impulse, for the kernels' check
 # the staged kernels' contracts (tests/test_physics_planar.py:298-384)
 SAT_TOL, SOLVE_TOL = 5e-6, 2e-5
 # the contract of scx's fused-kernel test (tests/test_physics_planar.py):
@@ -252,14 +287,17 @@ def check_middle(tag, ops, params, ordered_plain=False):
     return max(err_vwc, err_lam), live
 
 
-def check_staged(tag, sat_ops, solve_ops, params, ordered_plain=False):
+def check_staged(tag, sat_ops, solve_ops, params, ordered_plain=False, solve_fn=None):
     """SAT and solve kernels vs their plain versions on the card on the
     staged step's operands. Returns (the SAT's and the solve's max abs
     error, the most live pairs of an env). ordered_plain as in
-    check_middle, for the solve."""
+    check_middle, for the solve; solve_fn is the solve's wrapper
+    (planar.solve_fleet by default)."""
     import torch
 
     from scx_torch.physics import planar as pp
+
+    solve_fn = solve_fn or pp.solve_fleet
 
     kinds = params.shape_kinds
     ker = [x.cpu() for x in pp.sat_fleet(*sat_ops, kinds)]
@@ -276,7 +314,7 @@ def check_staged(tag, sat_ops, solve_ops, params, ordered_plain=False):
     jac = solve_ops[0]
     q_cv = pp._solve_q("cvalid") * 4
     live = int((jac[:, q_cv:q_cv + 4] > 0.5).any(1).sum(-1).max())
-    vw_k, lam_k = (x.cpu() for x in pp.solve_fleet(*solve_ops, params.iterations))
+    vw_k, lam_k = (x.cpu() for x in solve_fn(*solve_ops, params.iterations))
     vw_r, lam_r = (x.cpu() for x in pp.solve_reference(*solve_ops, params.iterations))
     err_solve = max((vw_k - vw_r).abs().max().item(), (lam_k - lam_r).abs().max().item())
     extra = {}
@@ -648,7 +686,7 @@ def sandbox_phase(card):
     (capacity 4096, 640x352 through the cluster kernel, max_pairs 256, the
     procedural city with traffic, mip-mapped textures). Returns (the
     kernels at the sandbox's shapes, for phase 10; the sandbox's record for
-    the kernels line)."""
+    the kernels line; the sandbox, for phase 13's console)."""
     import os
     import warnings
 
@@ -811,13 +849,12 @@ def sandbox_phase(card):
            "middle_ms": mid_ms, "cluster_ms": cl_ms,
            "slowest_systems_ms": dict(slowest), "viewer_frames": saved, "card": card}
     print(json.dumps(rec), flush=True)
-    sb.shutdown()
     baked.shutdown()
     alone = [("sandbox_middle", "planar_middle_kernel",
               functools.partial(pp.middle, *mid_ops, solver)),
              ("sandbox_clusters", "cluster_raster_kernel",
               functools.partial(trc.rasterize_clusters, setup, ids, counts, fparams, kc, zmin))]
-    return alone, {
+    return alone, sb, {
         "planar_middle": {"launches": launches["middle"] + launches_b["middle"],
                           "max_abs_err": err_mid, "ms": mid_ms, "plain_ms": mid_plain_ms,
                           "bound_ms": mid_bound, "bound_by": mid_by,
@@ -1119,6 +1156,411 @@ def scale_out_phase(card, dev=None):
     print(json.dumps({"check": "dryrun_multichip", **dry,
                       "seconds": time.perf_counter() - t0, "card": card}), flush=True)
     return alone, rec
+
+
+def editor_world(root: str):
+    """A world root holding sector (0, 0) as the port's procgen makes it
+    (the ground slab and its props), written in scx's sector format."""
+    import shutil
+
+    from scx_torch.core.config import WorldPartitionConfig
+    from scx_torch.world import format as wf
+    from scx_torch.world import procgen
+
+    shutil.rmtree(root, ignore_errors=True)
+    sf = wf.SectorFile(sector=wf.SectorCoord(0, 0))
+    for i, r in enumerate(procgen.generate_sector_spawns(WorldPartitionConfig(), 0, 0)):
+        sf.instances.append(wf.Instance(
+            id=i + 1, mesh_id=r.mesh_asset_id, material_id=r.material_asset_id, name=r.name,
+            transform=wf.Transform(tuple(map(float, r.position)), tuple(map(float, r.rotation)),
+                                   tuple(map(float, r.scale)))))
+    if not (wf.write_sector_file(wf.build_sector_path(root, sf.sector), sf)
+            and wf.write_world_manifest(wf.build_world_manifest_path(root),
+                                        wf.WorldManifest(sectors=[sf.sector]))):
+        fail(f"editor: could not write the world under {root}")
+    return len(sf.instances)
+
+
+def editor_session(root: str, size, dev):
+    """An EditorSession at `size` on `dev` over the saved world, its camera
+    over sector (0, 0)."""
+    import numpy as np
+
+    from scx_torch.tools.editor_app import EditorSession
+
+    sess = EditorSession(world_root=root, width=size[0], height=size[1], device=dev)
+    sess.load()
+    sess.camera.position = np.asarray([32.0, 30.0, 84.0], np.float32)
+    sess.camera.pitch = -0.5
+    return sess
+
+
+def streamed_runtime_frame(root: str, n_entities: int, vp, params, pool, dev):
+    """The runtime path over the saved world: stream sector (0, 0) into a
+    WorldPartition, cull against vp, emit at most EDITOR_DRAW_CAP draws and
+    render them. Returns the rgb."""
+    import numpy as np
+
+    from scx_torch.core.config import StreamingBudgets, WorldPartitionConfig
+    from scx_torch.render.pipeline import DrawList, render_frame
+    from scx_torch.state import entity as ent
+    from scx_torch.world.culling import cull_entities, emit_draws
+    from scx_torch.world.streaming import WorldPartition
+
+    wp = WorldPartition(WorldPartitionConfig(load_radius=0, unload_radius=1), StreamingBudgets(),
+                        capacity=2 * EDITOR_DRAW_CAP, world_root=root)
+    state = ent.alloc_entity_state(2 * EDITOR_DRAW_CAP, envs=1, device=dev)
+    try:
+        for _ in range(200):
+            state = wp.update(state, np.asarray([32.0, 0.0, 32.0]), np.asarray([0.0, 0.0, -1.0]))
+            if wp.stats.entities == n_entities:
+                break
+            time.sleep(0.01)
+    finally:
+        wp.shutdown()
+    if wp.stats.entities != n_entities:
+        fail(f"editor: {wp.stats.entities} entities streamed of {n_entities}")
+    visible, mats = cull_entities(state, vp[None])
+    d = emit_draws(state, visible, mats, EDITOR_DRAW_CAP)
+    draws = DrawList(mesh_id=d.mesh_id[0], material_id=d.material_id[0], model=d.model[0],
+                     valid=d.valid[0])
+    return render_frame(draws, pool, vp, params)[0]
+
+
+def editor_part(card, dev):
+    """Phase 13.1: the world editor's session on the card, its document
+    filled to its draw cap, driven by keys, saved, streamed back through the
+    runtime path and rendered there pixel-identical to the viewport, at
+    each of EDITOR_SIZES. Returns (the cluster kernel at each size, for
+    phase 10; the editor record)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from scx_torch.ops import raster_clusters as trc
+    from scx_torch.physics import planar as pp
+    from scx_torch.timing import cuda_ms
+    from scx_torch.tools import editor as te
+
+    root = os.path.join("build", "chip_smoke_editor", "world")
+    procgen_instances = editor_world(root)
+    sess = editor_session(root, EDITOR_SIZES[0], dev)
+    if len(sess.doc.entities) != procgen_instances:
+        fail(f"editor: loaded {len(sess.doc.entities)} of {procgen_instances} instances")
+    # fill to two below the draw cap on a grid of the palette's items; the
+    # key session places the last two
+    pal, k = sess.palette, 0
+    while len(sess.doc.entities) < EDITOR_DRAW_CAP - 2:
+        item = pal[k % len(pal)]
+        scale = np.asarray(item["scale"], np.float32) * np.float32(0.5)
+        pos = np.asarray([2.0 + 3.7 * (k % 17), scale[1] * 0.5, 2.0 + 3.1 * (k // 17)],
+                         np.float32)
+        sess.stack.execute(sess.doc, te.PlaceCommand(te.EditorEntity(
+            id=sess.doc.allocate_id(), name=item["label"], mesh_id=item["mesh_id"],
+            material_id=item["material_id"], position=pos, scale=scale)))
+        k += 1
+    steps = [
+        (["p"], "placed"), (["l"] * 10 + ["tab", "p"], "placed"),
+        (["enter"], "selected ["), (["h"] * 10 + ["m"], "selected ["),
+        (["g", "x"] + ["l"] * 5 + ["enter"], "select (committed)"),
+        (["r", "y", "+", "+", "enter"], "select (committed)"),
+        (["s", "z", "+", "enter"], "select (committed)"),
+        (["u", "u"], "undo"), (["U"], "redo"), (["X", "u", "u"], "undo"),
+        (["c", "w", "esc"], "select"), (["W"], "saved"),
+    ]
+    log = []
+    for keys, want in steps:
+        for key in keys:
+            sess.handle_key(key)
+        log.append(sess.status)
+        if not sess.status.startswith(want):
+            fail(f"editor: keys {keys} left status {sess.status!r}, wanted {want!r}")
+    if len(sess.doc.entities) != EDITOR_DRAW_CAP:
+        fail(f"editor: {len(sess.doc.entities)} instances after the key session")
+    saved = sess.saved_path
+    print(json.dumps({"check": "editor session", "keys": sum(len(k) for k, _ in steps),
+                      "instances": len(sess.doc.entities), "procgen_instances": procgen_instances,
+                      "selection": sess.doc.selection, "statuses": log,
+                      "undo_depth": len(sess.stack.undo_stack), "saved": saved}), flush=True)
+
+    alone, sizes, camera = [], {}, sess.camera
+    for size in EDITOR_SIZES:
+        if size != EDITOR_SIZES[0]:  # a new session on the saved sector, the same camera
+            sess = editor_session(root, size, dev)
+            sess.camera = camera
+            if len(sess.doc.entities) != EDITOR_DRAW_CAP:
+                fail(f"editor: the saved sector loads {len(sess.doc.entities)} instances")
+        tag = f"{size[0]}x{size[1]}"
+        (rgb, gbuf, _, vp), lists = capture_calls(trc, "frame_cluster_lists", sess.scene_view)
+        rgb_p, gbuf_p, _, _ = sess.scene_view(plain=True)
+        unequal = [k for k in gbuf if not torch.equal(gbuf[k], gbuf_p[k])]
+        err = max((gbuf[k].double() - gbuf_p[k].double()).abs().max().item() for k in gbuf)
+        if unequal or not torch.equal(rgb, rgb_p):
+            fail(f"editor {tag}: the cluster kernel's G-buffer differs from the plain "
+                 f"rasterizer's in {unequal or ['rgb']}")
+        rgb_r = streamed_runtime_frame(root, EDITOR_DRAW_CAP, vp, sess._params, sess._pool, dev)
+        differ = int((rgb != rgb_r).any(-1).sum())
+        covered = gbuf["covered"].float().mean().item()
+        if differ or covered < 0.05 or not torch.isfinite(rgb).all():
+            fail(f"editor {tag}: {differ} pixels differ from the streamed runtime's frame "
+                 f"(covered share {covered})")
+        # the viewport as the app draws it: the frame on the card, the lines
+        # over it and the host copy with the crosshair; then the frame on
+        # the card alone (scene_view), synchronized after each
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(EDITOR_FRAMES):
+            host = sess.render()
+        secs = (time.perf_counter() - t0) / EDITOR_FRAMES
+        launches = trc.RASTER_CLUSTERS_LAUNCHES
+        other = (pp.MIDDLE_KERNEL_LAUNCHES + pp.SAT_KERNEL_LAUNCHES + pp.SOLVE_KERNEL_LAUNCHES
+                 + trc.RASTER_CLUSTERS_BATCHED_LAUNCHES)
+        if launches != EDITOR_FRAMES or other:
+            fail(f"editor {tag}: {launches} cluster and {other} other launches in "
+                 f"{EDITOR_FRAMES} frames")
+        if host.shape != (size[1], size[0], 3) or not np.isfinite(host).all():
+            fail(f"editor {tag}: render() gave {host.shape}, or values not finite")
+        t0 = time.perf_counter()
+        for _ in range(EDITOR_FRAMES):
+            sess.scene_view()
+            torch.cuda.synchronize()
+        view_secs = (time.perf_counter() - t0) / EDITOR_FRAMES
+
+        setup, aabb, valid, fparams = lists[0][0]
+        ids, counts, zmin, dropped = trc.frame_cluster_lists(setup, aabb, valid, fparams)
+        kc = fparams.max_clusters_per_tile
+        work = torch.zeros(fparams.n_tiles, dtype=torch.int32, device=setup.device)
+        walked = torch.zeros_like(work)
+        won = torch.zeros(fparams.max_tris, dtype=torch.bool, device=setup.device)
+        trc.rasterize_clusters_reference(setup, ids, counts, fparams, kc, zmin, work, walked,
+                                         won)
+        kernel = functools.partial(trc.rasterize_clusters, setup, ids, counts, fparams, kc, zmin)
+        cl_ms = cuda_ms(kernel, 20)
+        cl_plain_ms = cuda_ms(lambda: trc.rasterize_clusters_reference(
+            setup, ids, counts, fparams, kc, zmin), 2)
+        pixels, rows = cluster_pass_a_pixels(setup[None], aabb[None], ids[None], walked[None],
+                                             fparams)
+        cl_bound, cl_by, _ = raster_bound(work, rows, int(won.sum()), pixels, fparams,
+                                          4 * (ids.numel() + counts.numel() + zmin.numel()))
+        sizes[tag] = {"launches": launches, "max_abs_err": err, "ms": cl_ms,
+                      "plain_ms": cl_plain_ms, "bound_ms": cl_bound, "bound_by": cl_by,
+                      "tris_in": int(valid.sum()), "listed_clusters": int(counts.sum()),
+                      "dropped_clusters": int(dropped)}
+        alone.append((f"editor_clusters_{tag}", "cluster_raster_kernel", kernel))
+        print(json.dumps({"check": "editor viewport", "size": tag,
+                          "editor_frame_ms": secs * 1e3, "scene_view_ms": view_secs * 1e3,
+                          "cluster_launches_per_frame": launches / EDITOR_FRAMES,
+                          "pixels_differing_from_runtime": differ,
+                          "gbuffer_bit_equal_to_plain": True, "covered_share": covered,
+                          **sizes[tag], "card": card}), flush=True)
+    return alone, {"launches": sum(r["launches"] for r in sizes.values()),
+                   "instances": EDITOR_DRAW_CAP, "sizes": sizes}
+
+
+def console_part(card, sb):
+    """Phase 13.2: the live-tuning console on phase 11's sandbox: pause,
+    a tuning column, a tick rebuild, max_pairs across the step's routes
+    (fused -> staged -> plain -> fused), a raycast, the read-outs, and a
+    save / load, each checked. Returns the route record."""
+    import os
+
+    import torch
+
+    from scx_torch.ops import raster_clusters as trc
+    from scx_torch.physics import planar as pp
+
+    c, slot, dev = sb.console(), sb.player_slot, sb.device
+
+    def frames(n, inp=(0.5, 0.0, 0.0, 0.0)):
+        steps = 0
+        for _ in range(n):
+            sb.frame(player_input=inp)
+            steps += sb.n_steps
+        return steps
+
+    def answer(cmd, want):
+        out = c.command(cmd)
+        if want not in out:
+            fail(f"console: {cmd!r} answered {out!r}, wanted {want!r} in it")
+        return out
+
+    answers = {}
+    alive0, gen0 = sb.state.alive[0].clone(), sb.state.generation[0].clone()
+    pos0 = sb.state.transform.pos[0].clone()
+    answers["pause"] = answer("pause", "paused")
+    frames(CONSOLE_FRAMES, (1.0, 0.0, 0.0, 0.0))
+    same = alive0 & sb.state.alive[0] & (gen0 == sb.state.generation[0])
+    if not (same[slot] and torch.equal(sb.state.transform.pos[0][same], pos0[same])):
+        fail("console: poses moved while paused")
+    answer("pause", "running")
+    moved = frames(1, (1.0, 0.0, 0.0, 0.0))
+    if moved and torch.equal(sb.state.transform.pos[0, slot], pos0[slot]):
+        fail("console: the player did not move after the pause ended")
+
+    other = sb.state.vehicle.max_speed[0, slot - 1].item()
+    answers["set vehicle"] = answer("set vehicle.max_speed 6", f"[{slot}] = 6.0")
+    if (sb.state.vehicle.max_speed[0, slot].item() != 6.0
+            or sb.state.vehicle.max_speed[0, slot - 1].item() != other):
+        fail("console: vehicle.max_speed did not land in the player's slot alone")
+    tick = sb._tick
+    answers["set iterations"] = answer("set physics.iterations 8", "rebuilt")
+    if sb._tick is tick or sb.sim.solver.iterations != 8:
+        fail("console: physics.iterations did not rebuild the tick")
+    frames(1)
+
+    routes = {}
+    for pairs, route in ((512, "staged"), (2048, "plain"), (256, "fused")):
+        answer(f"set physics.max_pairs {pairs}", "rebuilt")
+        if pp.step_route(sb.capacity, pairs, dev) != route:
+            fail(f"console: N={sb.capacity}, P={pairs} does not route {route}")
+        before = dict(pp.STEP_ROUTES)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = frames(CONSOLE_FRAMES)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / CONSOLE_FRAMES * 1e3
+        delta = {k: pp.STEP_ROUTES[k] - before[k] for k in before}
+        launches = {"middle": pp.MIDDLE_KERNEL_LAUNCHES, "sat": pp.SAT_KERNEL_LAUNCHES,
+                    "solve": pp.SOLVE_KERNEL_LAUNCHES, "cluster": trc.RASTER_CLUSTERS_LAUNCHES}
+        staged = 0 if route == "fused" else n  # the plain route runs the staged kernels
+        want = {"middle": n - staged, "sat": staged, "solve": staged, "cluster": CONSOLE_FRAMES}
+        if n < 1 or delta[route] != n or sum(delta.values()) != n or launches != want:
+            fail(f"console: max_pairs {pairs}: routes {delta}, launches {launches} in "
+                 f"{n} steps (wanted {route}: {want})")
+        if not torch.isfinite(sb.state.transform.pos).all():
+            fail(f"console: state not finite after max_pairs {pairs}")
+        routes[pairs] = {"route": route, "steps": n, "step_routes_delta": delta,
+                         "launches": launches, "frame_ms": ms,
+                         "cache_pairs": int(sb._cache.key_a.shape[-1])}
+
+    px, _, pz = sb.state.transform.pos[0, slot].tolist()
+    answers["raycast"] = answer(f"raycast {px} 30 {pz} 0 -1 0", "hit body")
+    answers["tree"] = answer("tree 2", "sector")
+    answers["inspect"] = answer(f"inspect {slot}", "alive=True")
+    answers["assets"] = answer("assets", "materials (")
+    save = os.path.join("build", "chip_smoke_console", "save")
+    os.makedirs(os.path.dirname(save), exist_ok=True)
+    answers["save"] = answer(f"save {save}", "saved ->")
+    want = sb.state.transform.pos.clone()
+    frames(1)
+    answers["load"] = answer(f"load {save}", "loaded <-")
+    if not torch.equal(sb.state.transform.pos, want):
+        fail("console: load did not restore the saved poses")
+    print(json.dumps({"check": "console", "routes": routes,
+                      "answers": {k: v.splitlines()[0] for k, v in answers.items()},
+                      "card": card}), flush=True)
+    return routes
+
+
+def f1_part(card, dev):
+    """Phase 13.3: Sandbox(capacity=F1_CAPACITY) on the card: N=8192 at
+    P=256 fits neither physics kernel's shared memory, so every step takes
+    the plain route (fault F1 of the port, repaired): the SAT kernel and
+    the solve kernel with its per-env work in global memory, one launch of
+    each per step, held against their plain versions on a step of it with
+    a valid contact. Returns (both kernels at its shape, for phase 10; its
+    record)."""
+    import torch
+
+    from scx_torch.app import sandbox as sbx
+    from scx_torch.app import viewer
+    from scx_torch.ops import raster_clusters as trc
+    from scx_torch.physics import planar as pp
+    from scx_torch.timing import cuda_ms
+
+    route = pp.step_route(F1_CAPACITY, 256, dev)
+    if route != "plain":
+        fail(f"F1: N={F1_CAPACITY}, P=256 routes {route}")
+    t0 = time.perf_counter()
+    box = sbx.Sandbox(capacity=F1_CAPACITY, device=dev)
+    build_s = time.perf_counter() - t0
+    box.frame()  # the first frame streams the world in
+    before = dict(pp.STEP_ROUTES)
+    reset_counts()
+    ms, steps = [], 0
+    for i in range(F1_FRAMES):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rgb, tel = box.frame(player_input=(0.6, 0.0, 0.1, 0.0))
+        rgb.sum().item()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        steps += box.n_steps
+    delta = {k: pp.STEP_ROUTES[k] - before[k] for k in before}
+    launches = {"middle": pp.MIDDLE_KERNEL_LAUNCHES, "sat": pp.SAT_KERNEL_LAUNCHES,
+                "solve": pp.SOLVE_KERNEL_LAUNCHES, "cluster": trc.RASTER_CLUSTERS_LAUNCHES}
+    if (steps < 1 or delta["plain"] != steps or delta["fused"] or delta["staged"]
+            or launches != {"middle": 0, "sat": steps, "solve": steps, "cluster": F1_FRAMES}):
+        fail(f"F1: routes {delta}, launches {launches} in {steps} steps")
+    if not (torch.isfinite(rgb).all() and torch.isfinite(box.state.transform.pos).all()):
+        fail("F1: rgb or state not finite")
+
+    # the kernels against their plain versions on the first step of the
+    # next frames whose solve gives an impulse
+    solver, found, frames = box.sim.solver, None, 0
+    kinds, iters = solver.shape_kinds, solver.iterations
+    while frames < F1_SEARCH_FRAMES and found is None:
+        _, seen = capture_many(((pp, "planar_contacts"), (pp, "planar_solve")),
+                               lambda: box.frame(player_input=viewer.scripted_input(frames)))
+        frames += 1
+        for c_call, s_call in zip(seen["planar_contacts"], seen["planar_solve"]):
+            b_s, con, _, ia, ib, lam0 = s_call[0][:6]
+            if found is None and con.valid.any():
+                jac, vw0, _ = pp.solve_pack(b_s, con, solver, ia, ib, lam0)
+                if pp.solve_reference(jac, ia, ib, vw0, iters)[1].abs().sum() > 0:
+                    found = (c_call[0][:4], (jac, ia, ib, vw0), int(con.valid.sum()))
+    if found is None:
+        fail(f"F1: no step with an impulse in {F1_SEARCH_FRAMES} frames")
+    sat_ops, solve_ops = pp._sat_inputs(*found[0]), found[1]
+    jac = solve_ops[0]
+    err_sat, err_solve, live = check_staged("F1 sandbox step", sat_ops, solve_ops, solver,
+                                            solve_fn=pp.solve_fleet_global)
+    bounds = staged_bounds(sat_ops, solve_ops, kinds, iters)
+    sat_ms = cuda_ms(lambda: pp.sat_fleet(*sat_ops, kinds), 20)
+    sat_plain_ms = cuda_ms(lambda: pp.sat_reference(*sat_ops, kinds), 3)
+    solve_ms = cuda_ms(lambda: pp.solve_fleet_global(*solve_ops, iters), 20)
+    solve_plain_ms = cuda_ms(lambda: pp.solve_reference(*solve_ops, iters), 3)
+    shape = {"bodies": F1_CAPACITY, "pairs": int(jac.shape[-1])}
+    kernels = {
+        "planar_sat": {"launches": launches["sat"], "max_abs_err": err_sat, "ms": sat_ms,
+                       "plain_ms": sat_plain_ms, "bound_ms": bounds["sat_bound_ms"],
+                       "bound_by": bounds["sat_bound_by"], **shape},
+        "planar_solve": {"launches": launches["solve"], "max_abs_err": err_solve,
+                         "ms": solve_ms, "plain_ms": solve_plain_ms,
+                         "bound_ms": bounds["solve_bound_ms"],
+                         "bound_by": bounds["solve_bound_by"], "work": "global", **shape},
+    }
+    rec = {"check": "F1 sandbox", "capacity": F1_CAPACITY, "pairs": 256, "route": route,
+           "frames": F1_FRAMES, "fixed_steps": steps, "step_routes_delta": delta,
+           "launches": launches, "build_s": build_s, "frame_ms": ms,
+           "entities": tel.entities, "active_sectors": tel.active_sectors,
+           "traffic_total": tel.traffic_total, "compared_step_valid_contacts": found[2],
+           "search_frames": frames,
+           "max_live_pairs": live, "kernels": kernels, **bounds, "card": card}
+    print(json.dumps(rec), flush=True)
+    box.shutdown()
+    alone = [("f1_sat", "planar_sat_kernel", functools.partial(pp.sat_fleet, *sat_ops, kinds)),
+             ("f1_solve_global", "planar_solve_kernel",
+              functools.partial(pp.solve_fleet_global, *solve_ops, iters))]
+    return alone, rec
+
+
+def tools_phase(card, sb, dev=None):
+    """Phase 13: the world editor, the console on phase 11's sandbox `sb`,
+    and F1 at the sandbox's scale. Returns (the kernels at the editor's and
+    the F1 sandbox's shapes, for phase 10; the editor's record and the
+    plain route's SAT and solve records for the kernels line)."""
+    import torch
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    alone, editor = editor_part(card, dev)
+    editor["console_routes"] = console_part(card, sb)
+    f1_alone, f1 = f1_part(card, dev)
+    editor["f1_sandbox"] = {k: f1[k] for k in ("capacity", "route", "fixed_steps", "frame_ms")}
+    return alone + f1_alone, editor, f1["kernels"]
 
 
 def main():
@@ -1627,13 +2069,20 @@ def main():
 
     # ---- 11. the sandbox on the card (before phase 10: the profiler may ---
     # leave a cost per launch behind it) ---------------------------------------
-    sandbox_alone, sandbox = sandbox_phase(card)
+    sandbox_alone, sb, sandbox = sandbox_phase(card)
     alone += sandbox_alone
 
     # ---- 12. scale-out: the big scene, spatial strips, the sharded fleet ---
     # (before phase 10, for the same reason)
     scale_alone, scale_out = scale_out_phase(card)
     alone += scale_alone
+
+    # ---- 13. the editor, the console and F1 (before phase 10, for the same
+    # reason) ------------------------------------------------------------------
+    tools_alone, editor, plain_route = tools_phase(card, sb)
+    alone += tools_alone
+    sb.shutdown()
+    del sb
 
     # ---- 10. each kernel alone: phases 3, 4b, 5 and 7's inputs, RL fleets --
     kernel_alone = {}
@@ -1651,6 +2100,10 @@ def main():
                               ("planar_middle", "spatial_middle")):
         scale_out[kname]["kernel_ms"] = kernel_alone[alone_name]
     scale_out["rasterize_tiles_batched"]["kernel_ms"] = kernel_alone["rollout_sharded_tiles"]
+    for size, rec in editor["sizes"].items():
+        rec["kernel_ms"] = kernel_alone[f"editor_clusters_{size}"]
+    plain_route["planar_sat"]["kernel_ms"] = kernel_alone["f1_sat"]
+    plain_route["planar_solve"]["kernel_ms"] = kernel_alone["f1_solve_global"]
     rl_alone = {}
     for name, (rops, solver) in rl_middle.items():
         k_ms = kernel_ms(functools.partial(pp.middle, *rops, solver), 20,
@@ -1679,21 +2132,22 @@ def main():
          "max_abs_err": err_sat, "ms": sat_ms, "kernel_ms": kernel_alone["planar_sat"],
          "plain_ms": sat_plain_ms,
          "bound_ms": sat_bound, "bound_by": sat_by, "library_ms": None,
-         "bigscene": scale_out["planar_sat"]},
+         "bigscene": scale_out["planar_sat"], "plain_route": plain_route["planar_sat"]},
         {"name": "planar_solve", "route": "cuda",
          "source": "scx_torch/physics/csrc/planar_staged.cu",
          "replaces": "scx/physics/planar.py:1283", "launches": solve_launches,
          "max_abs_err": err_solve, "ms": solve_ms, "kernel_ms": kernel_alone["planar_solve"],
          "plain_ms": solve_plain_ms,
          "bound_ms": solve_bound, "bound_by": solve_by, "library_ms": None,
-         "bigscene": scale_out["planar_solve"]},
+         "bigscene": scale_out["planar_solve"], "plain_route": plain_route["planar_solve"]},
         {"name": "rasterize_clusters", "route": "cuda",
          "source": "scx_torch/ops/csrc/raster.cu",
          "replaces": "scx/ops/raster_clusters.py:404",
          "launches": frame_launches["render_frame_baked"], "max_abs_err": err_cl,
          "ms": cl_ms, "kernel_ms": kernel_alone["rasterize_clusters"], "plain_ms": cl_plain_ms,
          "bound_ms": cl_bound, "bound_by": cl_by, "library_ms": None,
-         "sandbox": sandbox["rasterize_clusters"], "bigscene": scale_out["rasterize_clusters"]},
+         "sandbox": sandbox["rasterize_clusters"], "bigscene": scale_out["rasterize_clusters"],
+         "editor": editor},
         {"name": "rasterize_tiles", "route": "cuda", "source": "scx_torch/ops/csrc/raster.cu",
          "replaces": "scx/ops/raster.py:155", "launches": tile_launches,
          "max_abs_err": err_t, "ms": t_ms, "kernel_ms": kernel_alone["rasterize_tiles"],

@@ -300,6 +300,14 @@ class Sandbox:
         if self._cache.key_a.shape[-1] != self.sim.solver.max_pairs:
             self._cache = empty_sync_cache(1, self.sim.solver.max_pairs, device=self.device)
 
+    def console(self):
+        """The live-tuning console (scx_torch.app.debugui), built once."""
+        if not hasattr(self, "_console"):
+            from scx_torch.app.debugui import DebugConsole
+
+            self._console = DebugConsole(self)
+        return self._console
+
     def _sync_shape_kinds(self):
         """Narrowphase shape kinds from the streamed content (the fix of
         scx's fixed ("box",), which drops sphere and capsule contacts of

@@ -3,12 +3,13 @@ and write frames to disk.
 
 The reference opens an SDL window (sc_app.cpp); here frames go to PNG files
 (PIL) or PPM (always available). Doubles as the app-shell component: event
-pump -> scripted inputs, resize -> raster params. scx's `--edit` (the world
-editor) and the interactive console are not ported: both need scx.tools and
-scx.app.debugui.
+pump -> scripted inputs, resize -> raster params. In `--interactive` mode
+':' drops to the live-tuning console (scx_torch.app.debugui); `--edit`
+opens the world editor (scx_torch.tools.editor_app) instead of the sandbox.
 
 Usage: python -m scx_torch.app.viewer --frames 120 --out build/frames
        [--cpu] [--interactive] [--trace build/trace]
+       python -m scx_torch.app.viewer --edit [--world-root build/world] [--cpu]
 """
 
 from __future__ import annotations
@@ -98,6 +99,7 @@ class TerminalInput:
 
         self._held: dict[str, int] = {}
         self.quit = False
+        self.want_console = False
         self._fd = None
         self._old = None
         if _sys.stdin.isatty():
@@ -119,6 +121,8 @@ class TerminalInput:
             ch = _sys.stdin.read(1).lower()
             if ch == "q":
                 self.quit = True
+            if ch == ":":  # live-tuning console (scx_torch.app.debugui)
+                self.want_console = True
             self._held[ch] = self.HOLD
         for k in list(self._held):
             self._held[k] -= 1
@@ -154,10 +158,27 @@ def main(argv=None):
         "--trace", default=None, metavar="LOGDIR",
         help="capture a torch.profiler trace of the run into LOGDIR",
     )
+    ap.add_argument(
+        "--edit", action="store_true",
+        help="open the interactive world editor instead of the sandbox "
+             "(scx_torch.tools.editor_app: pick/gizmos/palette/undo/save)",
+    )
+    ap.add_argument("--world-root", default=None,
+                    help="the editor's world root (default: editor_app's)")
     ap.add_argument("--term-cols", type=int, default=110)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernels' plain versions); the card otherwise")
     args = ap.parse_args(argv)
+
+    if args.edit:
+        from scx_torch.tools import editor_app
+
+        return editor_app.main(
+            (["--world-root", args.world_root] if args.world_root else [])
+            + ["--width", str(args.width), "--height", str(args.height),
+               "--term-cols", str(args.term_cols)]
+            + (["--cpu"] if args.cpu else [])
+        )
 
     from scx_torch.app.sandbox import Sandbox
     from scx_torch.render.pipeline import RasterParams
@@ -181,6 +202,15 @@ def main(argv=None):
             if term:
                 print("\x1b[H\x1b[2J" + frame_to_ansi(rgb, args.term_cols))
                 print(sb.telemetry.format_overlay(), flush=True)
+                if term.want_console:
+                    # drop to a line-edited prompt (reference: ImGui panels,
+                    # sc_imgui.cpp:351-554), then back to cbreak
+                    term.close()
+                    try:
+                        print(sb.console().command(input(": ")), flush=True)
+                    except EOFError:
+                        pass
+                    term.__init__()
                 if term.quit:
                     break
             elif i % args.every == 0:

@@ -232,6 +232,29 @@ class AssetManager:
         self.stats.reloads += 1
         return True
 
+    def process_asset_changes(self, db) -> list[int]:
+        """Consume an editor AssetDatabase rescan: reload changed textures
+        we hold, evict removed ones (their materials rebind to the fallback
+        slot on the next device_materials build). `db` is a
+        scx_torch.tools.asset_db.AssetDatabase rooted at this manager's
+        asset root. Returns the ids actually reloaded in place.
+
+        Mirrors the reference editor's change pump: AssetDatabase mtime
+        rescan feeding EditorTextureCache::reload
+        (tools/world_editor/editor_core/sc_asset_db.h:100-156)."""
+        reloaded: list[int] = []
+        for aid in db.rescan_changed():
+            if db.find_by_id(aid) is None:
+                rec = self.textures.pop(aid, None)
+                if rec is not None and rec.slot >= 0:
+                    self._free_slots.append(rec.slot)
+                    self._pool_dirty = True
+                    self.stats.evictions += 1
+                continue
+            if self.reload_texture(aid):
+                reloaded.append(aid)
+        return reloaded
+
     def touch(self, asset_id: int):
         """LRU touch (touchMaterial/touch, sc_assets.cpp:441-455)."""
         rec = self.textures.get(asset_id)

@@ -9,6 +9,7 @@ every scx subpackage imports JAX when it is imported.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 
 
@@ -153,3 +154,22 @@ class EngineConfig:
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)
+
+
+def asset_root(default: str | None = None) -> str:
+    """Asset root resolution with SC_ASSET_ROOT override (sc_paths.cpp:31-60)."""
+    env = os.environ.get("SC_ASSET_ROOT", "")
+    if env:
+        return env
+    return default if default is not None else os.path.join(os.getcwd(), "assets")
+
+
+def world_root(cfg_default: str | None = None) -> str:
+    """World root resolution with SC_WORLD_ROOT override
+    (sc_world_partition.cpp:71-78)."""
+    env = os.environ.get("SC_WORLD_ROOT", "")
+    if env:
+        return env
+    if cfg_default is not None:
+        return cfg_default
+    return os.path.join(asset_root(), "world")

@@ -6,6 +6,10 @@ Quaternions are (w, x, y, z) in the last dim, as in scx.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
+import functools
+
 import numpy as np
 import torch
 
@@ -45,6 +49,85 @@ def quat_from_euler_xyz(rx, ry, rz) -> torch.Tensor:
     return quat_mul(qz, quat_mul(qy, qx))
 
 
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.clamp(norm(q, keepdim=True), min=EPSILON)
+
+
+def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
+    """Integrate unit quaternion(s) q by world-frame angular velocity omega."""
+    wq = torch.cat([torch.zeros_like(omega[..., :1]), omega], dim=-1)
+    dq = 0.5 * quat_mul(wq, q)
+    return quat_normalize(q + dq * dt)
+
+
+# ---------------------------------------------------------------------------
+# Host trigonometry as scx computes it on the CPU. XLA's CPU backend calls
+# the C library's sinf, cosf and atan2f for f32 (and takes asin as
+# 2 atan2(x, 1 + sqrt((1 - x)(1 + x)))); neither torch's nor numpy's f32
+# sin or atan2 rounds the same. The editor's and the streaming's host math
+# goes through these, so that documents and spawned rotations are
+# bit-equal to scx's.
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _libm():
+    lib = ctypes.CDLL(ctypes.util.find_library("m"))
+    for name in ("sinf", "cosf"):
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
+    lib.atan2f.restype, lib.atan2f.argtypes = ctypes.c_float, [ctypes.c_float, ctypes.c_float]
+    return lib
+
+
+def host_sin_cos(x) -> tuple[np.ndarray, np.ndarray]:
+    """f32 sin and cos of f32 array x, as the C library rounds them."""
+    lib = _libm()
+    x = np.asarray(x, np.float32)
+    sin = np.asarray([lib.sinf(float(v)) for v in x.ravel()], np.float32).reshape(x.shape)
+    cos = np.asarray([lib.cosf(float(v)) for v in x.ravel()], np.float32).reshape(x.shape)
+    return sin, cos
+
+
+def _atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """f32 atan2: the C library's atan2f on CPU tensors (as scx rounds it
+    there), torch's elsewhere."""
+    if y.device.type != "cpu":
+        return torch.atan2(y, x)
+    lib = _libm()
+    yb, xb = torch.broadcast_tensors(y, x)
+    out = [lib.atan2f(float(a), float(b)) for a, b in zip(yb.reshape(-1).tolist(),
+                                                          xb.reshape(-1).tolist())]
+    return torch.tensor(out, dtype=torch.float32).reshape(yb.shape)
+
+
+def _asin(x: torch.Tensor) -> torch.Tensor:
+    """f32 asin as XLA decomposes it, 2 atan2(x, 1 + sqrt((1 - x)(1 + x))).
+    On CPU tensors the square root is numpy's, which rounds correctly
+    (torch's vectorized CPU sqrt does not always)."""
+    r = (1.0 - x) * (1.0 + x)
+    root = torch.from_numpy(np.sqrt(r.numpy())) if x.device.type == "cpu" else torch.sqrt(r)
+    return 2.0 * _atan2(x, 1.0 + root)
+
+
+def quat_from_euler_xyz_host(rot) -> torch.Tensor:
+    """[n, 4] CPU quaternions Rz @ Ry @ Rx of Euler angles [n, 3] (f32), as
+    scx's quat_from_euler_xyz gives them on the host (see host_sin_cos)."""
+    half = (np.asarray(rot, np.float32) * np.float32(0.5)).astype(np.float32)
+    sin, cos = host_sin_cos(half)
+    s, c = torch.from_numpy(sin), torch.from_numpy(cos)
+
+    def axis_angle(i):
+        axis = torch.zeros(3)
+        axis[i] = 1.0
+        return torch.cat([c[:, i, None], axis * s[:, i, None]], dim=-1)
+
+    return quat_mul(axis_angle(2), quat_mul(axis_angle(1), axis_angle(0)))
+
+
 # ---------------------------------------------------------------------------
 # Vectors and 4x4 matrices (the render path's half of scx.core.math3d).
 # Matrices act on column vectors, v' = M @ v; every product is true f32
@@ -79,6 +162,16 @@ def quat_to_mat3(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(m.shape[:-1] + (3, 3))
 
 
+def quat_to_euler_xyz(q: torch.Tensor) -> torch.Tensor:
+    """Inverse of quat_from_euler_xyz (the Rz Ry Rx decomposition) -> [..., 3]
+    (rx, ry, rz); on CPU tensors bit-equal to scx's (see _atan2)."""
+    m = quat_to_mat3(q)
+    ry = _asin(torch.clamp(-m[..., 2, 0], -1.0, 1.0))
+    rx = _atan2(m[..., 2, 1], m[..., 2, 2])
+    rz = _atan2(m[..., 1, 0], m[..., 0, 0])
+    return torch.stack([rx, ry, rz], dim=-1)
+
+
 def mat4_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [..., 4, 4] @ b [..., 4, n], each 4-term dot summed pairwise as
     (p0 + p1) + (p2 + p3), which is how XLA's f32 dot rounds it in scx."""
@@ -89,6 +182,47 @@ def mat4_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _eye4(shape, like: torch.Tensor) -> torch.Tensor:
     return torch.eye(4, dtype=like.dtype, device=like.device).expand(
         tuple(shape) + (4, 4)).clone()
+
+
+def mat4_identity(shape=(), device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=torch.float32, device=device).expand(tuple(shape) + (4, 4))
+
+
+def mat4_inverse(m: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.inv(m)
+
+
+def mat4_inverse_rigid(m: torch.Tensor) -> torch.Tensor:
+    """Inverse of rigid (rotation + translation, no scale) transforms."""
+    rt = m[..., 0:3, 0:3].transpose(-1, -2)
+    out = torch.zeros_like(m)
+    out[..., 0:3, 0:3] = rt
+    out[..., 0:3, 3] = -transform_dir_rows(rt, m[..., 0:3, 3])
+    out[..., 3, 3] = 1.0
+    return out
+
+
+def transform_point_h(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """m [..., 4, 4] applied to points p [..., 3] (w = 1): homogeneous
+    [..., 4], each dot summed as mat4_mul sums it."""
+    ph = torch.cat([p, torch.ones_like(p[..., :1])], dim=-1)
+    return mat4_mul(m, ph[..., None])[..., 0]
+
+
+def transform_point(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """m applied to points p [..., 3] (w = 1), the perspective divide skipped."""
+    return transform_point_h(m, p)[..., 0:3]
+
+
+def transform_dir_rows(r: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """r [..., 3, 3] @ d [..., 3], each 3-term dot summed as (p0 + p1) + p2."""
+    p = [r[..., :, j] * d[..., None, j] for j in range(3)]
+    return (p[0] + p[1]) + p[2]
+
+
+def transform_dir(m: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The upper 3x3 of m [..., 4, 4] applied to directions d [..., 3]."""
+    return transform_dir_rows(m[..., 0:3, 0:3], d)
 
 
 def mat4_translation(t: torch.Tensor) -> torch.Tensor:
@@ -215,3 +349,20 @@ def frustum_from_view_proj(vp: torch.Tensor) -> torch.Tensor:
     planes = torch.stack([r3 + r0, r3 - r0, r3 + r1, r3 - r1, r2, r3 - r2], dim=-2)
     n = norm(planes[..., 0:3], keepdim=True)
     return planes / torch.clamp(n, min=EPSILON)
+
+
+def sphere_in_frustum(planes: torch.Tensor, center: torch.Tensor, radius: torch.Tensor):
+    """True where the bounding sphere (center [..., 3], radius [...])
+    intersects the frustum planes [..., 6, 4]."""
+    d = dot(planes[..., 0:3], center[..., None, :]) + planes[..., 3]
+    return (d >= -radius[..., None]).all(dim=-1)
+
+
+def world_bounding_sphere(aabb_min, aabb_max, world_mat):
+    """World-space bounding sphere (center [..., 3], radius [...]) of a
+    local AABB under an affine world matrix [..., 4, 4]."""
+    center_w = transform_point(world_mat, 0.5 * (aabb_min + aabb_max))
+    basis = world_mat[..., 0:3, 0:3]
+    col_sq = (basis * basis).sum(dim=-2)  # per local axis: the basis column's length^2
+    radius = norm(0.5 * (aabb_max - aabb_min) * torch.sqrt(torch.clamp(col_sq, min=0.0)))
+    return center_w, radius

@@ -56,7 +56,10 @@
 // output. Limits: P and N only
 // through solve_smem_bytes(N, P) <= the card's opt-in shared memory per
 // block (227 KB on an H100): P=128 takes N up to 7,916, N=64 takes P up
-// to 2,745.
+// to 2,745. Past that (the "plain" step route of planar.py, e.g. the
+// sandbox at N=8192) the same kernel keeps those words in a global buffer
+// per env instead (WORK_GLOBAL); its limit is build_lists' packing of a
+// body's index and a rank into one int: 2 P <= 32,768.
 //
 // The plain PyTorch versions are scx_torch.physics.planar.sat_reference
 // and solve_reference; built with --fmad=false like planar_middle.cu.
@@ -272,15 +275,68 @@ __device__ __forceinline__ Impulse pack_impulse(const float* col, int np, int k)
           ldg(col + (Q_L20 * K + k) * np)};
 }
 
+// dst[i] = src[i] (+ plus with ADD) for i < count over nthr threads, with
+// COPY_WORDS words of loads in flight per thread before their stores, 16
+// bytes a load where both ends allow it: one CTA's copy of 6 N velocities
+// waits on memory's latency, not its bandwidth.
+constexpr int COPY_WORDS = 16;
+template <bool ADD, class T>
+__device__ __forceinline__ void copy_batched(T* dst, const T* src, int count, int tid, int nthr,
+                                             float plus) {
+  constexpr int COPY_BATCH = COPY_WORDS * sizeof(float) / sizeof(T);
+  for (int base = tid; base < count; base += COPY_BATCH * nthr) {
+    T v[COPY_BATCH];
+#pragma unroll
+    for (int j = 0; j < COPY_BATCH; ++j) {
+      const int i = base + j * nthr;
+      if (i < count) v[j] = src[i];
+    }
+#pragma unroll
+    for (int j = 0; j < COPY_BATCH; ++j) {
+      const int i = base + j * nthr;
+      if (i >= count) continue;
+      if constexpr (ADD) {
+        if constexpr (sizeof(T) == sizeof(float)) {
+          v[j] = v[j] + plus;
+        } else {
+          v[j].x = v[j].x + plus;
+          v[j].y = v[j].y + plus;
+          v[j].z = v[j].z + plus;
+          v[j].w = v[j].w + plus;
+        }
+      }
+      dst[i] = v[j];
+    }
+  }
+}
+
+// Not inlined: its registers stay out of the sweeps' allocation.
+template <bool ADD>
+__device__ __noinline__ void copy_words(float* dst, const float* src, int count, int tid,
+                                        int nthr, float plus) {
+  if (((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src)) & 15) == 0 &&
+      count % 4 == 0)
+    copy_batched<ADD>(reinterpret_cast<float4*>(dst), reinterpret_cast<const float4*>(src),
+                      count / 4, tid, nthr, plus);
+  else
+    copy_batched<ADD>(dst, src, count, tid, nthr, plus);
+}
+
+// WORK_GLOBAL: the env's layout words live in work [E][L.words] in global
+// memory (the L1 of the env's SM holds what it reuses), not in shared
+// memory, so that N and P are limited by neither; the arithmetic and its
+// order are the same.
+template <bool WORK_GLOBAL>
 __global__ void __launch_bounds__(SOLVE_THREADS, SOLVE_MIN_CTAS) planar_solve_kernel(
     const float* __restrict__ jac_g, const int* __restrict__ ia_g, const int* __restrict__ ib_g,
-    const float* __restrict__ vw0, float* __restrict__ vw_out, float* __restrict__ lam, int n,
-    int np, int iterations) {
+    const float* __restrict__ vw0, float* __restrict__ vw_out, float* __restrict__ lam,
+    float* __restrict__ work, int n, int np, int iterations) {
   extern __shared__ float smem_words[];
   const SolveLayout L = solve_layout(n, np);
-  float* vw = smem_words + L.vw;
-  int* live = (int*)smem_words + L.live;
-  int* scratch = (int*)smem_words + L.scratch;
+  float* const words = WORK_GLOBAL ? work + (size_t)blockIdx.x * L.words : smem_words;
+  float* vw = words + L.vw;
+  int* live = (int*)words + L.live;
+  int* scratch = (int*)words + L.scratch;
   const int e = blockIdx.x, tid = threadIdx.x;
   const float* jac_e = jac_g + (size_t)e * SOLVE_R * np;
   const int* ia_e = ia_g + (size_t)e * np;
@@ -290,8 +346,8 @@ __global__ void __launch_bounds__(SOLVE_THREADS, SOLVE_MIN_CTAS) planar_solve_ke
   // a sweep adds +0 to an impulse that does not change: the same here
   const float plus = iterations > 0 ? 0.f : -0.f;
 
-  for (int i = tid; i < 6 * n; i += SOLVE_THREADS) vw[i] = vw0[(size_t)e * 6 * n + i];
-  for (int j = tid; j < n; j += SOLVE_THREADS) ((int*)smem_words)[L.body_slot + j] = -1;
+  copy_words<false>(vw, vw0 + (size_t)e * 6 * n, 6 * n, tid, SOLVE_THREADS, 0.f);
+  for (int j = tid; j < n; j += SOLVE_THREADS) ((int*)words)[L.body_slot + j] = -1;
 
   // ---- live slots, ascending; the others copy their impulse rows ---------
   int m = 0;
@@ -319,7 +375,7 @@ __global__ void __launch_bounds__(SOLVE_THREADS, SOLVE_MIN_CTAS) planar_solve_ke
   }
   __syncthreads();  // the live list is written
   if (m == 0) {
-    for (int i = tid; i < 6 * n; i += SOLVE_THREADS) vw_e[i] = vw[i] + plus;
+    copy_words<true>(vw_e, vw, 6 * n, tid, SOLVE_THREADS, plus);
     return;
   }
 
@@ -329,10 +385,10 @@ __global__ void __launch_bounds__(SOLVE_THREADS, SOLVE_MIN_CTAS) planar_solve_ke
   Sweep sw;
   sw.vw = vw;
   sw.n = n;
-  sw.upd = smem_words + L.upd;
-  sw.touched = (int*)smem_words + L.touched;
-  sw.toff = (int*)smem_words + L.toff;
-  sw.list = (int*)smem_words + L.list;
+  sw.upd = words + L.upd;
+  sw.touched = (int*)words + L.touched;
+  sw.toff = (int*)words + L.toff;
+  sw.list = (int*)words + L.list;
   sw.lam = lam_e;
   sw.np = np;
   sw.m = m;
@@ -342,8 +398,8 @@ __global__ void __launch_bounds__(SOLVE_THREADS, SOLVE_MIN_CTAS) planar_solve_ke
   sw.tid = tid;
   if (tid < 32) {  // warp 0 sorts the live pair sides by body
     auto key = [&](int en) { return en < m ? ia_e[live[en]] : ib_e[live[en - m]]; };
-    const int nt = build_lists(m, key, (int*)smem_words + L.body_slot, (int*)sw.touched,
-                               (int*)sw.toff, (int*)sw.list, (int*)smem_words + L.erank);
+    const int nt = build_lists(m, key, (int*)words + L.body_slot, (int*)sw.touched,
+                               (int*)sw.toff, (int*)sw.list, (int*)words + L.erank);
     if (tid == 0) scratch[0] = nt;
   }
   auto load = [&](int c) {
@@ -368,7 +424,7 @@ __global__ void __launch_bounds__(SOLVE_THREADS, SOLVE_MIN_CTAS) planar_solve_ke
   jacobi_sweeps(reg, imp, load, sw, iterations);
 
   if (tid < 4 * m) sw.lam_put(reg.slot, tid & 3, imp);  // later rounds' are in lam already
-  for (int i = tid; i < 6 * n; i += sw.nthr) vw_e[i] = vw[i] + plus;
+  copy_words<true>(vw_e, vw, 6 * n, tid, sw.nthr, plus);
 }
 
 size_t solve_smem_bytes(int n, int p) { return sizeof(float) * (size_t)solve_layout(n, p).words; }
@@ -425,23 +481,27 @@ int scx_planar_solve_prepare(long long smem, int* max_smem) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err == cudaSuccess && smem > 48 * 1024 && smem <= *max_smem)
-    err = cudaFuncSetAttribute(planar_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(planar_solve_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                *max_smem);
   return (int)err;
 }
 
 // CTAs of a launch of `smem` bytes that one SM holds at once.
 int scx_planar_solve_occupancy(long long smem, int* ctas) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, planar_solve_kernel,
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, planar_solve_kernel<false>,
                                                             SOLVE_THREADS, (size_t)smem);
 }
 
+// work: null for the layout in shared memory, else E solve_smem_bytes(n, p)
+// bytes of global memory for it (WORK_GLOBAL).
 int scx_planar_solve(const void* jac, const void* ia, const void* ib, const void* vw0, void* vw,
-                     void* lam, int e, int n, int p, int iterations, void* stream) {
+                     void* lam, void* work, int e, int n, int p, int iterations, void* stream) {
   if (e == 0) return 0;  // an empty fleet: nothing to launch, as in scx_planar_sat
-  planar_solve_kernel<<<e, SOLVE_THREADS, solve_smem_bytes(n, p), (cudaStream_t)stream>>>(
+  auto kernel = work ? planar_solve_kernel<true> : planar_solve_kernel<false>;
+  kernel<<<e, SOLVE_THREADS, work ? 0 : solve_smem_bytes(n, p), (cudaStream_t)stream>>>(
       (const float*)jac, (const int*)ia, (const int*)ib, (const float*)vw0, (float*)vw,
-      (float*)lam, n, p, iterations);
+      (float*)lam, (float*)work, n, p, iterations);
   return (int)cudaGetLastError();
 }
 

@@ -1074,10 +1074,7 @@ def _route(n: int, p: int, limit: int, on_card: bool) -> str:
         return "fused"
     if solve <= limit:
         return "staged"
-    raise ValueError(
-        f"no physics kernel can take N={n}, P={p}: one CTA per env needs {fused} B "
-        f"(fused middle) or {solve} B (staged solve) of shared memory, past the "
-        f"{limit} B of a block")
+    return "plain"
 
 
 def step_route(n: int, p: int, device, smem_limit=None) -> str:
@@ -1086,9 +1083,12 @@ def step_route(n: int, p: int, device, smem_limit=None) -> str:
     (the fused middle) where one env of it fits a block's opt-in shared
     memory, else "staged" (the SAT kernel, the warm gather, the solve
     kernel), as scx falls back to its staged kernels where the fused one
-    is rejected. Raises where neither fits. The limit is the card's; on the
-    CPU it is `smem_limit` (default: an H100's), so that the CPU takes the
-    route the card would."""
+    is rejected. Where neither fits, "plain", named for scx's fallback at
+    these shapes (its XLA primals: none of its Pallas kernels takes them):
+    here the staged kernels with the solve's per-env work in global memory
+    rather than shared memory. The limit is the card's; on the CPU it is
+    `smem_limit` (default: an H100's), so that the CPU takes the route the
+    card would."""
     device = torch.device(device)
     on_card = device.type == "cuda"
     if smem_limit is None:
@@ -1187,7 +1187,7 @@ def _finish_step(b: PlanarBodies, params: SolverParams, vel: V3, omega: V3, cnt,
     return planar_integrate_positions(b, params.dt), stats
 
 
-STEP_ROUTES = {"fused": 0, "staged": 0}  # steps per route, never reset here
+STEP_ROUTES = {"fused": 0, "staged": 0, "plain": 0}  # steps per route, never reset here
 
 
 def step_planar_cached(b: PlanarBodies, params: SolverParams,
@@ -1199,19 +1199,24 @@ def step_planar_cached(b: PlanarBodies, params: SolverParams,
 
     Where one env of the fused middle does not fit a block's shared memory
     (`step_route`), the step is `step_planar_staged`'s: the same results up
-    to the rounding of the per-body sums. middle_fn is the fused middle to
-    run; `middle_reference` lets a caller time the plain version on the
-    card, and raises on the staged route, which has no middle to bind.
-    smem_limit: see step_route."""
+    to the rounding of the per-body sums. Where the staged solve does not
+    fit either (the "plain" route), it is `step_planar_staged`'s with the
+    solve's work in global memory (`solve_fleet_global`): the same kernels
+    and results. The route is decided from the shapes alone; a kernel that
+    fails to build or launch raises on every route. middle_fn is the fused
+    middle to run; `middle_reference` lets a caller time the plain version
+    on the card, and raises on the other routes, which have no middle to
+    bind. smem_limit: see step_route."""
     route = step_route(b.n, params.max_pairs, b.shape.device, smem_limit)
-    if route == "staged":
+    if route != "fused":
         if middle_fn is not middle:
             raise ValueError(
-                f"step_planar_cached: N={b.n}, P={params.max_pairs} takes the staged route, "
+                f"step_planar_cached: N={b.n}, P={params.max_pairs} takes the {route} route, "
                 "where middle_fn does not apply; call step_planar_staged with sat_fn and "
                 "solve_fn to choose its kernels")
         STEP_ROUTES[route] += 1
-        return step_planar_staged(b, params, cache, key_id)
+        solve_fn = solve_fleet if route == "staged" else solve_fleet_global
+        return step_planar_staged(b, params, cache, key_id, solve_fn=solve_fn)
     STEP_ROUTES[route] += 1
     b, operands, (ka, kb, pair_valid, n_cand) = middle_operands(
         b, params, cache, key_id
@@ -1389,10 +1394,18 @@ def _solve_check_shape(device_index: int, nb: int, p: int) -> None:
         )
 
 
-def solve_fleet(jac, ia, ib, vw0, iterations: int):
+# build_lists (csrc/planar_device.cuh) packs a body's touched index and a
+# rank, each below 2 P, into one int: the global layout's only limit
+SOLVE_GLOBAL_MAX_PAIRS = 1 << 14
+
+
+def solve_fleet(jac, ia, ib, vw0, iterations: int, *, work_in_global: bool = False):
     """The fleet solve (see solve_reference for shapes; ia/ib are i32). CPU
     tensors take solve_reference; CUDA tensors launch the hand-written
-    kernel of csrc/planar_staged.cu on the current stream, or raise."""
+    kernel of csrc/planar_staged.cu on the current stream, or raise.
+    work_in_global puts each env's velocities, lists and update buffer in a
+    global buffer instead of the block's shared memory: the same results at
+    any N (P up to SOLVE_GLOBAL_MAX_PAIRS), for the "plain" step route."""
     global SOLVE_KERNEL_LAUNCHES
     if jac.device.type == "cpu":
         return solve_reference(jac, ia, ib, vw0, iterations)
@@ -1406,19 +1419,30 @@ def solve_fleet(jac, ia, ib, vw0, iterations: int):
         (ib, (e, p), torch.int32), (vw0, (e, 6, nb), f32),
     ))
     check_kernel_layout()
-    _solve_check_shape(jac.device.index, nb, p)
+    lib = _build.load()
+    if not work_in_global:
+        _solve_check_shape(jac.device.index, nb, p)
+    elif not (p >= 1 and nb >= 1 and p <= SOLVE_GLOBAL_MAX_PAIRS):
+        raise ValueError(f"solve kernel cannot take N={nb}, P={p} in global memory "
+                         f"(P up to {SOLVE_GLOBAL_MAX_PAIRS})")
     with torch.cuda.device(jac.device):
         vw = torch.empty((e, 6, nb), dtype=f32, device=jac.device)
         lam = torch.empty((e, 3 * _K, p), dtype=f32, device=jac.device)
-        err = _build.load().scx_planar_solve(
+        work = (torch.empty((e, lib.scx_planar_solve_smem_bytes(nb, p) // 4), dtype=f32,
+                            device=jac.device) if work_in_global else None)
+        err = lib.scx_planar_solve(
             jac.data_ptr(), ia.data_ptr(), ib.data_ptr(), vw0.data_ptr(),
-            vw.data_ptr(), lam.data_ptr(), e, nb, p, int(iterations),
-            torch.cuda.current_stream(jac.device).cuda_stream,
+            vw.data_ptr(), lam.data_ptr(), None if work is None else work.data_ptr(),
+            e, nb, p, int(iterations), torch.cuda.current_stream(jac.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"solve kernel launch failed: CUDA error {err}")
     SOLVE_KERNEL_LAUNCHES += 1
     return vw, lam
+
+
+# the fleet solve of the "plain" step route (step_route)
+solve_fleet_global = functools.partial(solve_fleet, work_in_global=True)
 
 
 def _sat_inputs(b: PlanarBodies, ia, ib, pair_valid):

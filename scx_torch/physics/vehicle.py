@@ -90,6 +90,29 @@ def tuning_gather(vehicle_state, idx) -> VehicleTuning:
     )
 
 
+def set_vehicle_tuning(state, idx, params: VehicleParams):
+    """Write a VehicleParams preset into the tuning columns of entity slot
+    `idx` of every env, in place (the live-tuning entry point: slider ->
+    updateVehicleTuning). Returns the state."""
+    vs = state.vehicle
+    for col, value in (
+        (vs.mass, params.mass), (vs.engine_force, params.engine_force),
+        (vs.max_speed, params.max_speed), (vs.brake_force, params.brake_force),
+        (vs.handbrake_force, params.handbrake_force), (vs.max_steer, params.max_steer),
+        (vs.steer_response, params.steer_response), (vs.susp_rest, params.susp_rest),
+        (vs.susp_stiff, params.susp_stiffness), (vs.damp_comp, params.damp_compression),
+        (vs.damp_relax, params.damp_relaxation), (vs.wheel_radius, params.wheel_radius),
+        (vs.friction_slip, params.friction_slip), (vs.roll_influence, params.roll_influence),
+    ):
+        col[:, idx] = value
+    return state
+
+
+def smooth_exp(current, target, rate, dt):
+    """Exponential input smoothing (sc_vehicle.cpp smoothExp)."""
+    return current + (target - current) * (1.0 - torch.exp(-rate * dt))
+
+
 @dataclass
 class WheelConfig:
     """Per-wheel geometry, chassis-local relative to COM."""
@@ -139,7 +162,7 @@ def smooth_controls(smoothed, raw, params, speed_ms, dt):
          torch.full_like(six, 10.0)],
         -1,
     )
-    sm = smoothed + (tgt - smoothed) * (1.0 - torch.exp(-rates * dt))
+    sm = smooth_exp(smoothed, tgt, rates, dt)
     throttle = sm[..., 0] ** 2
     brake = sm[..., 1] ** 2
     handbrake = sm[..., 3] ** 2

@@ -44,3 +44,18 @@ def camera_view_proj(eye, target, up, aspect: float,
     proj = m3.mat4_perspective_rh_zo(fovy, aspect, params.near_z, params.far_z,
                                      flip_y=params.flip_y, device=device)
     return m3.mat4_mul(proj, view)
+
+
+def camera_view_proj_from_pose(pos: torch.Tensor, quat: torch.Tensor, aspect: float,
+                               params: CameraParams = CameraParams()) -> torch.Tensor:
+    """[4, 4] viewProj from a camera's world pose, pos [3] and quat [4] on
+    their device (the camera looks down -Z of its frame, as in the
+    reference)."""
+    rt = m3.quat_to_mat3(quat).T
+    view = torch.eye(4, dtype=torch.float32, device=pos.device)
+    view[0:3, 0:3] = rt
+    view[0:3, 3] = -m3.transform_dir_rows(rt, pos)
+    fovy = np.float32(params.fov_y_deg) * np.float32(np.pi / 180.0)
+    proj = m3.mat4_perspective_rh_zo(fovy, aspect, params.near_z, params.far_z,
+                                     flip_y=params.flip_y, device=pos.device)
+    return m3.mat4_mul(proj, view)

@@ -75,6 +75,11 @@ def assemble_mat4(cols) -> torch.Tensor:
     return m.reshape(m.shape[:-1] + (4, 4))
 
 
+def world_matrices(state: EntityState) -> torch.Tensor:
+    """Per-entity world matrices [E, C, 4, 4] from TRS, parents resolved."""
+    return assemble_mat4(world_matrix_cols(state))
+
+
 def cull_entities(state: EntityState, view_proj):
     """Visibility [E, C] of each entity's world bounding sphere against the
     frustum of view_proj [E, 4, 4] (Gribb-Hartmann planes), and the world

@@ -25,10 +25,7 @@ scatter compiles once; the port scatters each sector's rows as they are.
 
 from __future__ import annotations
 
-import ctypes
-import ctypes.util
 import enum
-import functools
 import queue
 from concurrent.futures import wait as _wait_futures
 from dataclasses import dataclass, field
@@ -506,7 +503,7 @@ class WorldPartition:
         mat_slots = np.asarray(
             [self.asset_resolver("material", int(a)) for a in sp["material"]], np.int32
         ).reshape(n)
-        quat = _euler_quats(np.asarray(sp["rot"], np.float32))
+        quat = m3.quat_from_euler_xyz_host(sp["rot"])
         scale = torch.from_numpy(np.ascontiguousarray(sp["scale"], np.float32))
         t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt)
         cols = {
@@ -574,34 +571,6 @@ class WorldPartition:
                 self._in_flight -= 1
             except queue.Empty:
                 break
-
-
-@functools.cache
-def _libm():
-    lib = ctypes.CDLL(ctypes.util.find_library("m"))
-    for name in ("sinf", "cosf"):
-        fn = getattr(lib, name)
-        fn.restype, fn.argtypes = ctypes.c_float, [ctypes.c_float]
-    return lib
-
-
-def _euler_quats(rot: np.ndarray) -> torch.Tensor:
-    """[n, 4] quaternions Rz @ Ry @ Rx of Euler angles [n, 3] (f32), as
-    scx's m3.quat_from_euler_xyz gives them on the host: XLA's CPU sin and
-    cos of f32 are the C library's sinf and cosf, which this calls (neither
-    torch's nor numpy's f32 sin rounds the same)."""
-    lib = _libm()
-    half = (rot * np.float32(0.5)).astype(np.float32)
-    sin = np.asarray([lib.sinf(float(v)) for v in half.ravel()], np.float32).reshape(half.shape)
-    cos = np.asarray([lib.cosf(float(v)) for v in half.ravel()], np.float32).reshape(half.shape)
-    s, c = torch.from_numpy(sin), torch.from_numpy(cos)
-
-    def axis_angle(i):
-        axis = torch.zeros(3)
-        axis[i] = 1.0
-        return torch.cat([c[:, i, None], axis * s[:, i, None]], dim=-1)
-
-    return m3.quat_mul(axis_angle(2), m3.quat_mul(axis_angle(1), axis_angle(0)))
 
 
 def _append_collider_spawns(spawns: dict, colliders) -> dict:

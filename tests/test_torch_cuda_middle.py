@@ -126,3 +126,36 @@ def test_kernel_limits(gpu):
     for nb, p in ((n_max + 1, 128), (64, p_max + 1)):
         with pytest.raises(ValueError, match="cannot take"):
             tp._middle_check_shape(gpu.index, 1, nb, p)
+
+
+def test_forced_plain_route_matches_fused_route(gpu):
+    """On the card, a step forced onto the plain route (a shared-memory
+    limit below both kernels' needs) launches the SAT kernel and the solve
+    kernel with its work in global memory, not the middle, and stays
+    within the middle's contract of the fused route's step from the same
+    warm state: velocities 5e-5, impulses 5e-4, contact ids exact where
+    both are valid."""
+    params = SolverParams(max_pairs=128, iterations=6, shape_kinds=("box",))
+    b = fleet.build_pile_fleet(64, 24, gpu)
+    cache = tp.empty_planar_cache(64, 128, device=gpu)
+    for _ in range(10):
+        b, cache, _ = tp.step_planar_cached(b, params, cache)
+    limit = tp.solve_smem_bytes(24, 128) - 1
+    assert tp.step_route(24, 128, gpu, smem_limit=limit) == "plain"
+    launches, routes = tp.MIDDLE_KERNEL_LAUNCHES, dict(tp.STEP_ROUTES)
+    sat, solve = tp.SAT_KERNEL_LAUNCHES, tp.SOLVE_KERNEL_LAUNCHES
+    bp, cp, sp = tp.step_planar_cached(b, params, cache, smem_limit=limit)
+    torch.cuda.synchronize()
+    assert tp.MIDDLE_KERNEL_LAUNCHES == launches
+    assert (tp.SAT_KERNEL_LAUNCHES, tp.SOLVE_KERNEL_LAUNCHES) == (sat + 1, solve + 1)
+    assert tp.STEP_ROUTES["plain"] == routes["plain"] + 1
+    bf, cf, sf = tp.step_planar_cached(b, params, cache)
+    assert tp.MIDDLE_KERNEL_LAUNCHES == launches + 1
+    for f in ("vel", "omega"):
+        for u, v in zip(getattr(bp, f), getattr(bf, f)):
+            torch.testing.assert_close(u, v, rtol=0, atol=5e-5)
+    both = (cp.cand >= 0) & (cf.cand >= 0)
+    assert torch.equal(cp.cand[both], cf.cand[both])
+    for f in ("lam_n", "lam_1", "lam_2"):
+        torch.testing.assert_close(getattr(cp, f), getattr(cf, f), rtol=0, atol=5e-4)
+    assert int(sp["contacts"].sum()) > 0

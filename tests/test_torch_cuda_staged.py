@@ -41,7 +41,7 @@ def gpu():
     return torch.device("cuda", 0)
 
 
-def _warm(gpu, envs, bodies, pairs, kinds, triggers):
+def _warm(gpu, envs, bodies, pairs, kinds, triggers, step=tp.step_planar_staged):
     params = SolverParams(max_pairs=pairs, iterations=6, shape_kinds=kinds)
     if kinds == ("box",):
         b = fleet.build_pile_fleet(envs, bodies, gpu)
@@ -51,7 +51,7 @@ def _warm(gpu, envs, bodies, pairs, kinds, triggers):
         b = replace(b, trigger=(torch.arange(bodies, device=gpu) % 7 == 3).expand(envs, -1))
     cache = tp.empty_planar_cache(envs, pairs, device=gpu)
     for _ in range(3):
-        b, cache, _ = tp.step_planar_staged(b, params, cache)
+        b, cache, _ = step(b, params, cache)
     b = tp.planar_integrate_velocities(b, params.dt, params.gravity)
     ia, ib, pair_valid, _ = tp.planar_broadphase(b, pairs)
     return b, cache, params, ia, ib, pair_valid
@@ -115,6 +115,44 @@ def test_solve_kernel_matches_plain(gpu, envs, bodies, pairs, kinds, triggers):
     before = tp.SOLVE_KERNEL_LAUNCHES
     vw_k, lam_k = (x.cpu() for x in tp.solve_fleet(jac, ia, ib, vw0, params.iterations))
     assert tp.SOLVE_KERNEL_LAUNCHES == before + 1
+    vw_r, lam_r = (x.cpu() for x in tp.solve_reference(jac, ia, ib, vw0, params.iterations))
+    assert lam_r.abs().sum() > 0
+    torch.testing.assert_close(vw_k, vw_r, rtol=0, atol=2e-5)
+    torch.testing.assert_close(lam_k, lam_r, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("envs,bodies,pairs,kinds,triggers", CASES[:3])
+def test_solve_kernel_with_global_work_is_the_shared_kernel(gpu, envs, bodies, pairs, kinds,
+                                                            triggers):
+    """The solve's global-memory layout (the plain step route's) gives the
+    shared-memory layout's bits from the same pack: the same arithmetic in
+    the same order."""
+    b, cache, params, ia, ib, pair_valid = _warm(gpu, envs, bodies, pairs, kinds, triggers)
+    con = tp.planar_contacts(b, ia, ib, pair_valid, kinds)
+    lam0 = tp.planar_gather_warm(cache, ia, ib, pair_valid, con.cand)
+    jac, vw0, _ = tp.solve_pack(b, con, params, ia, ib, lam0)
+    before = tp.SOLVE_KERNEL_LAUNCHES
+    vw_g, lam_g = tp.solve_fleet_global(jac, ia, ib, vw0, params.iterations)
+    vw_s, lam_s = tp.solve_fleet(jac, ia, ib, vw0, params.iterations)
+    assert tp.SOLVE_KERNEL_LAUNCHES == before + 2
+    assert torch.equal(vw_g, vw_s) and torch.equal(lam_g, lam_s)
+    assert lam_s.abs().sum() > 0
+
+
+def test_solve_kernel_with_global_work_past_the_shared_limit(gpu):
+    """Two sandbox-sized piles (N=8192, P=256: 250,904 B of shared memory
+    per env, past the H100's 232,448) through the plain route's solve:
+    within 2e-5 of solve_reference, where the shared layout raises. The
+    warm steps take the plain route."""
+    assert tp.step_route(8192, 256, gpu) == "plain"
+    b, cache, params, ia, ib, pair_valid = _warm(gpu, 2, 8192, 256, ("box",), False,
+                                                 step=tp.step_planar_cached)
+    con = tp.planar_contacts(b, ia, ib, pair_valid, ("box",))
+    lam0 = tp.planar_gather_warm(cache, ia, ib, pair_valid, con.cand)
+    jac, vw0, _ = tp.solve_pack(b, con, params, ia, ib, lam0)
+    with pytest.raises(ValueError, match="cannot take"):
+        tp.solve_fleet(jac, ia, ib, vw0, params.iterations)
+    vw_k, lam_k = (x.cpu() for x in tp.solve_fleet_global(jac, ia, ib, vw0, params.iterations))
     vw_r, lam_r = (x.cpu() for x in tp.solve_reference(jac, ia, ib, vw0, params.iterations))
     assert lam_r.abs().sum() > 0
     torch.testing.assert_close(vw_k, vw_r, rtol=0, atol=2e-5)

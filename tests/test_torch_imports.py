@@ -30,7 +30,9 @@ def test_port_imports_neither_jax_nor_scx():
                 "scx_torch.rl.train_ppo", "scx_torch.core.tree", "scx_torch.parallel",
                 "scx_torch.parallel.mesh",
                 "scx_torch.parallel.spatial", "scx_torch.parallel.bigscene",
-                "scx_torch.parallel.streamed_bigscene", "scx_torch.parallel.dryrun"):
+                "scx_torch.parallel.streamed_bigscene", "scx_torch.parallel.dryrun",
+                "scx_torch.app.debugui", "scx_torch.tools", "scx_torch.tools.asset_db",
+                "scx_torch.tools.editor", "scx_torch.tools.editor_app"):
         assert new in mods, new
     out = subprocess.run([sys.executable, "-c", _PROBE, *mods, "chip_smoke"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=True)

@@ -8,8 +8,9 @@ strip's right end. scx steps it with make_bigscene_entity_step on the
 8-device virtual CPU mesh (jitted once, no render); the port as two local
 shards. The contract is scx's own test's (tests/test_parallel_bigscene.py
 :231-296): per step the counts equal, after 24 steps (scx's takes 40;
-its jitted step runs ~0.5 s a step here) the alive rows'
-(position, lane_s, speed) within 5e-3 and the alive count equal.
+its jitted step runs ~0.5 s a step here; the 40-step comparison runs
+under `slow`) the alive rows' (position, lane_s, speed) within 5e-3 and
+the alive count equal.
 
 The port's render strips (a 32x64 frame, two 16-row strips through the
 single-frame kernel's plain version) equal its full frame of the gathered
@@ -20,6 +21,7 @@ for make_bigscene_chain.
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from scx import physics as ph
@@ -76,7 +78,9 @@ def _np_state(t):
     return out
 
 
-def test_entity_step_matches_scx_and_renders_strips():
+def _entity_steps_match_scx(steps):
+    """`steps` entity steps of scx and of the port from scx's world, held
+    to scx's contract; returns what the port's render checks need."""
     sharded, lanes, w = _world()
     jcfg = JCfg(traffic=JTraffic(front_ray_length=6.0, lane_change_enabled=False))
     jsim = JSim(solver=ph.SolverParams(max_pairs=128, iterations=6))
@@ -93,7 +97,7 @@ def test_entity_step_matches_scx_and_renders_strips():
     tlanes = convert.lane_arrays(jax.tree.map(np.asarray, lanes), "cpu")
     tcache = tbg.empty_shard_caches(mesh, 128)
     migrated = 0
-    for i in range(STEPS):
+    for i in range(steps):
         jstate, jcache, jstats = jstep(jstate, jcache, lanes, None)
         tstate, tcache, rgb, tstats = tstep(tstate, tcache, tlanes, None)
         assert rgb is None
@@ -105,6 +109,18 @@ def test_entity_step_matches_scx_and_renders_strips():
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=0, atol=5e-3)
     assert int(tstate.alive.sum()) == int(np.asarray(jstate.alive).sum())
+    return mesh, cfg, sim, w, tstate, tcache, tlanes
+
+
+@pytest.mark.slow
+def test_entity_step_matches_scx_over_40_steps():
+    """scx's own test's length (tests/test_parallel_bigscene.py:257): 40
+    steps under the same contract."""
+    _entity_steps_match_scx(40)
+
+
+def test_entity_step_matches_scx_and_renders_strips():
+    mesh, cfg, sim, w, tstate, tcache, tlanes = _entity_steps_match_scx(STEPS)
 
     # the same world rendered in two row strips, and chained steps
     raster = tpipe.RasterParams(width=64, height=32, tile_h=16, tile_w=64, max_tris=1024,

@@ -296,3 +296,43 @@ def test_sphere_collider_takes_all_shape_kinds(tmp_path):
     assert contacts > 0
     assert px > x + 0.1 and py < c[1] + 1.0 + h - 0.05, (px, py)
     sb.shutdown()
+
+
+def _console_text(answer: str) -> str:
+    """A console answer with the asset manager's frame counters (the
+    manager's frame and each texture's last-used frame) blanked: a sandbox
+    that loads a save starts its manager at frame 0."""
+    import re
+
+    return re.sub(r"lru +\d+", "lru _", re.sub(r"frame \d+", "frame _", answer))
+
+
+def test_console_answers_match_scx(scx_world):
+    """The port's console (scx_torch.app.debugui) and scx's, each on its
+    sandbox at scx's save, give the same answers to get, tree, inspect,
+    raycast and assets (tests/test_app_debugui.py's reads), the assets
+    panel up to its frame counters."""
+    jsb, path = scx_world
+    assert jsb.load_game(path)
+    tsb = port_sandbox()
+    assert tsb.load_game(path)
+    jc, tc = jsb.console(), tsb.console()
+    slot = tsb.player_slot
+    px, _, pz = tsb.state.transform.pos[0, slot].tolist()
+    traffic = np.where((tsb.state.components[0] & ent.C_TRAFFIC).numpy() != 0)[0]
+    assert len(traffic) > 0
+    commands = [
+        "get streaming.load_radius", "get budgets.max_activations_per_frame",
+        "get traffic.max_vehicles_physics", "get physics.max_pairs", "get physics.iterations",
+        "get vehicle.max_speed", "get vehicle.engine_force", "get vehicle_defaults.mass",
+        "tree 3", "tree 1000", f"inspect {slot}", f"inspect {traffic[0]}",
+        f"inspect {traffic[-1]}", "inspect 0",
+        f"raycast {px} 30 {pz} 0 -1 0", f"raycast {px + 7.5} 20 {pz - 3.0} 0.2 -1 0.1",
+        f"raycast {px} 2 {pz} 1 0 0", f"raycast {px} 30 {pz} 0 1 0",
+        "get nope.nope", "wat",
+    ]
+    for cmd in commands:
+        assert tc.command(cmd) == jc.command(cmd), cmd
+    assert "hit body" in tc.command(commands[14])
+    assert _console_text(tc.command("assets")) == _console_text(jc.command("assets"))
+    tsb.shutdown()

@@ -43,11 +43,14 @@ extern "C" int emu_sat(const float* ga, const float* gb, const float* pvf, unsig
 }
 
 extern "C" int emu_solve(const float* jac, const int* ia, const int* ib, const float* vw0,
-                         float* vw, float* lam, int e, int n, int p, int iterations) {
-  if (solve_smem_bytes(n, p) > sizeof(smem_words)) return 1;
+                         float* vw, float* lam, float* work, int e, int n, int p,
+                         int iterations) {
+  if (!work && solve_smem_bytes(n, p) > sizeof(smem_words)) return 1;
   for (int b = 0; b < e; ++b)
-    emu_block(b, SOLVE_THREADS,
-              [&] { planar_solve_kernel(jac, ia, ib, vw0, vw, lam, n, p, iterations); });
+    emu_block(b, SOLVE_THREADS, [&] {
+      if (work) planar_solve_kernel<true>(jac, ia, ib, vw0, vw, lam, work, n, p, iterations);
+      else planar_solve_kernel<false>(jac, ia, ib, vw0, vw, lam, nullptr, n, p, iterations);
+    });
   return 0;
 }
 """
@@ -58,7 +61,7 @@ def emulated(tmp_path_factory):
     so = torch_planar_emu.build(SRC, _TAIL, tmp_path_factory.mktemp("emu"))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     so.emu_sat.argtypes = [vp] * 4 + [i32] * 3
-    so.emu_solve.argtypes = [vp] * 6 + [i32] * 4
+    so.emu_solve.argtypes = [vp] * 7 + [i32] * 4
     so.emu_layout.argtypes = [ctypes.POINTER(i32)]
     so.emu_solve_smem.argtypes = [i32, i32]
     so.emu_solve_smem.restype = ctypes.c_longlong
@@ -124,6 +127,22 @@ def _check_sat(got, ref):
         torch.testing.assert_close(g, r, rtol=0, atol=5e-6)
 
 
+def _emu_solve(so, jac, ia, ib, vw0, iterations, work_in_global=False):
+    """The solve kernel source's (vw, lam); work_in_global runs the
+    template that keeps each env's words in a buffer (filled with NaN, so
+    a word read before it is written shows) rather than shared memory."""
+    e, _, p = jac.shape
+    n = vw0.shape[-1]
+    vw = torch.empty((e, 6, n))
+    lam = torch.empty((e, 12, p))
+    work = torch.full((e, tp.solve_smem_bytes(n, p) // 4), float("nan")) if work_in_global else None
+    jac, ia, ib, vw0 = (x.contiguous() for x in (jac, ia.int(), ib.int(), vw0))
+    assert so.emu_solve(jac.data_ptr(), ia.data_ptr(), ib.data_ptr(), vw0.data_ptr(),
+                        vw.data_ptr(), lam.data_ptr(), None if work is None else work.data_ptr(),
+                        e, n, p, iterations) == 0
+    return vw, lam
+
+
 CASES = [
     (6, 24, 128, ALL_KINDS, False),
     (4, 24, 37, ALL_KINDS, True),
@@ -173,13 +192,7 @@ def test_solve_kernel_source_matches_reference(emulated, envs, bodies, pairs, ki
     jac, vw0, _ = tp.solve_pack(b, con, params, ia, ib, lam0)
     assert tuple(jac.shape) == (envs, 168, pairs) and jac.is_contiguous()
     assert sum(x.abs().sum() for x in lam0) > 0  # the warm start is live
-    vw = torch.empty_like(vw0)
-    lam = torch.empty((envs, 12, pairs))
-    ia, ib, vw0 = ia.contiguous(), ib.contiguous(), vw0.contiguous()
-    rc = emulated.emu_solve(jac.data_ptr(), ia.data_ptr(), ib.data_ptr(), vw0.data_ptr(),
-                            vw.data_ptr(), lam.data_ptr(), envs, bodies, pairs,
-                            params.iterations)
-    assert rc == 0
+    vw, lam = _emu_solve(emulated, jac, ia, ib, vw0, params.iterations)
     vw_r, lam_r = tp.solve_reference(jac, ia, ib, vw0, params.iterations)
     assert lam_r.abs().sum() > 0
     torch.testing.assert_close(vw, vw_r, rtol=0, atol=2e-5)
@@ -212,11 +225,27 @@ def test_solve_kernel_source_takes_every_branch(emulated, iterations):
     assert live[2].sum() > 64                      # 4 x 64 register contacts per CTA
     assert 8 < live[3].sum() <= 64 and not pair_valid[3].all()
     assert torch.isfinite(jac.permute(0, 2, 1)[~live]).all()
-    vw = torch.empty_like(vw0)
-    lam = torch.empty((4, 12, 128))
-    ia, ib, vw0 = ia.contiguous(), ib.contiguous(), vw0.contiguous()
-    rc = emulated.emu_solve(jac.data_ptr(), ia.data_ptr(), ib.data_ptr(), vw0.data_ptr(),
-                            vw.data_ptr(), lam.data_ptr(), 4, 64, 128, iterations)
-    assert rc == 0
+    vw, lam = _emu_solve(emulated, jac, ia, ib, vw0, iterations)
     vw_r, lam_r = tp.solve_reference(jac, ia, ib, vw0, iterations)
     assert torch.equal(vw, vw_r) and torch.equal(lam, lam_r)
+
+
+@pytest.mark.parametrize("envs,bodies,pairs,kinds,triggers", [
+    CASES[0], CASES[2], (4, 64, 2800, ("box",), False)])
+def test_solve_kernel_source_with_global_work(emulated, envs, bodies, pairs, kinds, triggers):
+    """The solve's global-memory template (the "plain" step route's, where
+    one env's words exceed a block's shared memory: 64 x 2800 needs 237,016
+    B of the H100's 232,448) gives the shared-memory template's bits on the
+    same pack, every env at its own offset of the buffer, and so stays
+    within 2e-5 of solve_reference."""
+    b, cache, params, ia, ib, pair_valid = _warm_fleet(envs, bodies, pairs, kinds, triggers)
+    con = tp.planar_contacts(b, ia, ib, pair_valid, kinds)
+    lam0 = tp.planar_gather_warm(cache, ia, ib, pair_valid, con.cand)
+    jac, vw0, _ = tp.solve_pack(b, con, params, ia, ib, lam0)
+    vw_g, lam_g = _emu_solve(emulated, jac, ia, ib, vw0, params.iterations, work_in_global=True)
+    vw_s, lam_s = _emu_solve(emulated, jac, ia, ib, vw0, params.iterations)
+    assert torch.equal(vw_g, vw_s) and torch.equal(lam_g, lam_s)
+    vw_r, lam_r = tp.solve_reference(jac, ia, ib, vw0, params.iterations)
+    assert lam_r.abs().sum() > 0
+    torch.testing.assert_close(vw_g, vw_r, rtol=0, atol=2e-5)
+    torch.testing.assert_close(lam_g, lam_r, rtol=0, atol=2e-5)

@@ -38,12 +38,14 @@ SHIM = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__
 #define __restrict__ __restrict
 #define __shared__
 #define __launch_bounds__(...)
 using std::min;
 struct emu_dim { unsigned x, y, z; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
+struct alignas(16) float4 { float x, y, z, w; };
 // The posting slots rotate, so a slot is written again only after every
 // lane has read it (two barrier phases later).
 struct EmuWarp {
