@@ -113,7 +113,11 @@ fleet -- in phases and exits non-zero at the first failure:
      baked and not, pair_overflow, the three slowest systems, the kernels'
      entry ms at these shapes);
  12. scale-out (run before phase 10): the big scene, spatial strips, the
-     dp-sharded tile fleet and the dry run (scale_out_phase);
+     dp-sharded tile fleet and the dry run (scale_out_phase); the strips
+     step through scx's conventional step, as scx's do (no kernel launch:
+     `spatial_steps_per_s` prints "path": "torch"), and the middle kernel
+     is held at their shape on the operands of one planar step of the
+     strips' combined bodies;
  13. the tools (run after phase 12, before phase 10): (1) the world
      editor's EditorSession on the card over a world root under build/
      written from the port's procgen, its document filled to the editor's
@@ -137,6 +141,19 @@ fleet -- in phases and exits non-zero at the first failure:
      one launch each per step, a few frames with their ms; both kernels
      against their plain versions on a step of it with a valid contact
      (phase 4b's contracts), timed alone in phase 10.
+ 14. scx's conventional step (run after phase 13, before phase 10):
+     scx_torch.physics.step_bodies_cached, plain PyTorch as scx's is plain
+     XLA (no kernel): tests/test_physics_solver.py's scenes under its gates
+     (the 8-box tower for 600 steps, the 12-box tower for 1000 steps with
+     colors=4, a capsule lying on a box face, a sphere and an upright
+     capsule at rest, 45-degree crossed boxes); a mixed fleet of 16 x 24
+     stepped on the card and on the CPU from the card's state every step
+     (colors 0 and 4): stats equal, validity flips only at graze pairs,
+     positions within 1e-5, velocities and impulses within 1e-4; two runs
+     on the card bit for bit; `conventional_env_steps_per_sec` on the pile
+     fleet (1024 x 64, max_pairs 128, 6 iterations, 240 steps) with its
+     kernel launches per step, device busy ms and idle share over 3
+     profiled steps, beside phase 4's fused rate.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A kernel's `ms` is its entry point's
@@ -183,6 +200,9 @@ EDITOR_DRAW_CAP, EDITOR_FRAMES = 256, 20
 CONSOLE_FRAMES = 3
 F1_CAPACITY, F1_FRAMES = 8192, 6
 F1_SEARCH_FRAMES = 120  # frames to find an F1 step with an impulse, for the kernels' check
+# phase 14: the mixed fleet of the card-vs-CPU and rerun checks (envs, warm
+# steps, re-synced steps), and the pile fleet's profiled steps
+CONV_SYNC_ENVS, CONV_SYNC_WARM, CONV_SYNC_STEPS, CONV_PROFILED_STEPS = 16, 30, 5, 3
 # the staged kernels' contracts (tests/test_physics_planar.py:298-384)
 SAT_TOL, SOLVE_TOL = 5e-6, 2e-5
 # the contract of scx's fused-kernel test (tests/test_physics_planar.py):
@@ -388,6 +408,19 @@ def count_ops(fn) -> int:
     with Counter():
         fn()
     return Counter.ops
+
+
+def device_launches(fn) -> int:
+    """CUDA kernels one call of `fn` launches, as torch.profiler traces
+    them (0 where no card is traced)."""
+    import torch
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in prof.events())
 
 
 def bound(bytes_moved: float, ops: float):
@@ -866,27 +899,6 @@ def sandbox_phase(card):
     }
 
 
-def spatial_world(strips: int, dev, make_bodies, dynamic, static):
-    """[strips, SPATIAL_N] boxes: a slab per strip under SPATIAL_N - 1 unit
-    boxes at seeded positions 1-12 m above it (some overlap at the start)."""
-    import numpy as np
-    import torch
-
-    w, n = SPATIAL_WIDTH, SPATIAL_N
-    rng = np.random.default_rng(7)
-    pos = np.stack([rng.uniform(1, w - 1, (strips, n)), rng.uniform(1.0, 12.0, (strips, n)),
-                    rng.uniform(-w / 2 + 1, w / 2 - 1, (strips, n))], -1).astype(np.float32)
-    pos[..., 0] += (np.arange(strips) * w)[:, None]
-    size = np.full((strips, n, 3), 0.5, np.float32)
-    btype = np.full((strips, n), dynamic, np.int32)
-    pos[:, 0] = np.stack([np.arange(strips) * w + w / 2, np.full(strips, -0.55),
-                          np.zeros(strips)], -1)
-    size[:, 0] = (w / 2, 0.05, w / 2)
-    btype[:, 0] = static
-    return make_bodies(torch.from_numpy(pos).to(dev), size=torch.from_numpy(size).to(dev),
-                       body_type=torch.from_numpy(btype).to(dev))
-
-
 def scale_out_phase(card, dev=None):
     """Phase 12: the scale-out paths on the card (`dev`: the first card),
     local shards of one device. Returns (the kernels at the new shapes, for
@@ -902,8 +914,8 @@ def scale_out_phase(card, dev=None):
     from scx_torch.parallel.dryrun import dryrun_multichip
     from scx_torch.parallel.mesh import make_mesh
     from scx_torch.physics import planar as pp
-    from scx_torch.physics.rigid import BODY_DYNAMIC, BODY_STATIC, make_bodies
     from scx_torch.physics.solver import SolverParams
+    from scx_torch.profile_spatial import spatial_world
     from scx_torch.render import pipeline as rp
     from scx_torch.timing import cuda_ms
 
@@ -1031,17 +1043,21 @@ def scale_out_phase(card, dev=None):
                                  "height": fparams.height}
     del state, caches, rgb, seen, strips, got, ref
 
-    # ---- 12.2 spatial physics strips through the fused middle ----
+    # ---- 12.2 spatial physics strips through the conventional step ----
     sp_params = SolverParams(max_pairs=SPATIAL_PAIRS, iterations=6, shape_kinds=("box",))
     smesh = make_mesh(dp=1, sp=BIG_STRIPS, device=dev)
-    bodies = spatial_world(BIG_STRIPS, dev, make_bodies, BODY_DYNAMIC, BODY_STATIC)
+    bodies = spatial_world(BIG_STRIPS, SPATIAL_N, dev)
     sstep = psp.spatial_sharded_step(smesh, sp_params, x0=0.0, shard_width=SPATIAL_WIDTH,
                                      halo=2.0, halo_cap=32, mig_cap=16)
     n_sp = SPATIAL_N + 2 * 32
     if pp.step_route(n_sp, SPATIAL_PAIRS, dev) != "fused":
-        fail("spatial strips: the route is not fused")
-    (bodies, sstats), mids = capture_calls(pp, "middle_operands", lambda: sstep(bodies))
-    mid_ops = mids[0][1][1]
+        fail("spatial strips: the planar route at the strips' shape is not fused")
+    (bodies, sstats), solves = capture_calls(psp, "step_bodies_cached", lambda: sstep(bodies))
+    # the middle kernel at the strips' shape, on one planar step's operands
+    # of the strips' combined [local + ghosts] bodies
+    combined = solves[0][0][0]
+    mid_ops = pp.middle_operands(pp.planar_from_rigid(combined), sp_params,
+                                 pp.empty_planar_cache(BIG_STRIPS, SPATIAL_PAIRS, device=dev))[1]
     err_mid, mlive = check_middle("spatial strips step", mid_ops, sp_params)
     mid_ms = cuda_ms(lambda: pp.middle(*mid_ops, sp_params), 20)
     mid_plain_ms = cuda_ms(lambda: pp.middle_reference(*mid_ops, sp_params), 3)
@@ -1059,16 +1075,17 @@ def scale_out_phase(card, dev=None):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     sl = {"middle": pp.MIDDLE_KERNEL_LAUNCHES, "sat": pp.SAT_KERNEL_LAUNCHES,
-          "fused_steps": pp.STEP_ROUTES["fused"] - routes0["fused"]}
+          "solve": pp.SOLVE_KERNEL_LAUNCHES,
+          "planar_steps": sum(pp.STEP_ROUTES[k] - routes0[k] for k in routes0)}
     sstats = {k: int(v) for k, v in sstats.items()}
-    print(json.dumps({"metric": "spatial_steps_per_s", "path": "cuda-kernel",
+    print(json.dumps({"metric": "spatial_steps_per_s", "path": "torch",
                       "value": SPATIAL_STEPS / secs, "steps": SPATIAL_STEPS, "seconds": secs,
                       "strips": BIG_STRIPS, "bodies_per_strip": SPATIAL_N,
                       "pairs": SPATIAL_PAIRS, "migrated": migrated, **sstats,
                       "launches": sl, "middle_ms": mid_ms, "middle_max_abs_err": err_mid,
                       "card": card}), flush=True)
-    if sl != {"middle": SPATIAL_STEPS, "sat": 0, "fused_steps": SPATIAL_STEPS}:
-        fail(f"spatial strips: launches {sl} in {SPATIAL_STEPS} steps")
+    if sl != {"middle": 0, "sat": 0, "solve": 0, "planar_steps": 0}:
+        fail(f"spatial strips: kernel launches {sl} in {SPATIAL_STEPS} conventional steps")
     if (sstats["halo_dropped"] or sstats["migration_dropped"]
             or sstats["active"] != BIG_STRIPS * SPATIAL_N
             or not torch.isfinite(bodies.pos).all()):
@@ -1076,8 +1093,9 @@ def scale_out_phase(card, dev=None):
     rec["planar_middle"] = {"launches": sl["middle"], "max_abs_err": err_mid, "ms": mid_ms,
                             "plain_ms": mid_plain_ms, "bound_ms": mid_bound, "bound_by": mid_by,
                             "envs": int(mid_ops[0].shape[0]), "bodies": n_sp,
-                            "pairs": SPATIAL_PAIRS}
-    del bodies
+                            "pairs": SPATIAL_PAIRS,
+                            "operands": "one planar step of the strips' combined bodies"}
+    del bodies, combined, solves
 
     # ---- 12.3 the dp-sharded tile-fleet rollout, bitwise the rollout ----
     env = rlenv.make_fleet("tiles", dev, n_envs=SHARD_ENVS)
@@ -1563,6 +1581,247 @@ def tools_phase(card, sb, dev=None):
     return alone + f1_alone, editor, f1["kernels"]
 
 
+def conventional_scenes():
+    """tests/test_physics_solver.py's scenes as (name, boxes, make_bodies
+    columns, quaternion overrides {row: (rx, ry, rz)}, SolverParams fields,
+    steps, the gate on the final bodies): its 8-box tower, its 12-box tower
+    under colors=4, a capsule lying on a box face, a sphere and an upright
+    capsule at rest, and 45-degree crossed boxes."""
+    import numpy as np
+
+    from scx_torch.physics.rigid import SHAPE_BOX, SHAPE_CAPSULE, SHAPE_SPHERE
+
+    def tower(n):
+        return np.stack([np.zeros(n), 0.5 + np.arange(n), np.zeros(n)], -1)
+
+    def tower_gate(n, dy, lat):
+        def gate(b):
+            p = b.pos[0, 1:1 + n].cpu()
+            got = {"dy": (p[:, 1] - np.arange(n)).abs().max().item(),
+                   "lateral": p[:, [0, 2]].abs().max().item(),
+                   "vel": b.vel[0, 1:1 + n].abs().max().item()}
+            return got, got["dy"] < dy and got["lateral"] < lat and got["vel"] < 0.05
+        return gate
+
+    def capsule_gate(b):
+        from scx_torch.core import math3d as m3
+        import torch
+
+        axis = m3.quat_rotate(b.quat[0, 1], torch.tensor([0.0, 1.0, 0.0], device=b.pos.device))
+        got = {"y": b.pos[0, 1, 1].item(), "axis_y": axis[1].item()}
+        return got, abs(got["y"] + 0.2) < 0.05 and abs(got["axis_y"]) < 0.2
+
+    def rest_gate(b):
+        got = {"sphere_y": b.pos[0, 1, 1].item(), "capsule_y": b.pos[0, 2, 1].item()}
+        return got, abs(got["sphere_y"]) < 0.05 and abs(got["capsule_y"] - 0.25) < 0.1
+
+    def crossed_gate(b):
+        got = {"top_y": b.pos[0, 2, 1].item(), "lateral": b.pos[0, 2, [0, 2]].abs().max().item()}
+        return got, abs(got["top_y"] - 1.0) < 0.15 and got["lateral"] < 0.3
+
+    slab = [32.0, 0.05, 32.0]
+    return [
+        ("tower_8", tower(8), {}, {}, dict(max_pairs=64, iterations=8), 600,
+         tower_gate(8, 0.3, 0.25)),
+        ("tower_12_colors_4", tower(12), {}, {}, dict(max_pairs=64, iterations=6, colors=4),
+         1000, tower_gate(12, 0.35, 0.05)),
+        ("capsule_on_box_face", [[0.0, 1.0, 0.0]],
+         dict(shape=np.asarray([SHAPE_BOX, SHAPE_CAPSULE], np.int32),
+              size=np.asarray([slab, [0.3, 0.6, 0.0]], np.float32)),
+         {1: (0.0, 0.0, np.pi / 2)}, dict(max_pairs=8), 240, capsule_gate),
+        ("sphere_capsule_rest", [[2.0, 0.6, 0.0], [-2.0, 1.2, 0.0]],
+         dict(shape=np.asarray([SHAPE_BOX, SHAPE_SPHERE, SHAPE_CAPSULE], np.int32),
+              size=np.asarray([slab, [0.5, 0.5, 0.5], [0.3, 0.45, 0.0]], np.float32)),
+         {}, dict(max_pairs=8), 240, rest_gate),
+        ("crossed_boxes", [[0.0, 0.5, 0.0], [0.0, 1.55, 0.0]],
+         dict(size=np.asarray([slab, [2.0, 0.5, 0.5], [2.0, 0.5, 0.5]], np.float32)),
+         {2: (0.0, np.pi / 4, 0.0)}, dict(max_pairs=16, iterations=10), 300, crossed_gate),
+    ]
+
+
+def conventional_run(b, params, steps):
+    """`steps` steps of scx_torch.physics.step_bodies_cached from an empty
+    cache. Returns (bodies, cache, the largest pair_overflow, a 0-d tensor)."""
+    import torch
+
+    from scx_torch import physics as cph
+
+    cache = cph.empty_contact_cache(b.active.shape[0], params.max_pairs, device=b.pos.device)
+    ovf = torch.zeros((), dtype=torch.int32, device=b.pos.device)
+    for _ in range(steps):
+        b, cache, st = cph.step_bodies_cached(b, params, cache)
+        ovf = torch.maximum(ovf, st["pair_overflow"].max())
+    return b, cache, ovf
+
+
+def conventional_resynced(b, params, steps, cpu):
+    """`steps` steps on the card, each also run on `cpu` from the card's
+    state and cache. Returns the largest differences and the envs
+    compared; fails unless stats agree and every validity difference is at
+    a graze pair (|depth| < GRAZE on the CPU's candidates), such an env
+    not being compared in that step."""
+    import torch
+
+    from scx_torch import physics as cph
+    from scx_torch.core.tree import tree_map
+    from scx_torch.physics import contacts as pc
+
+    to = lambda tree, d: tree_map(lambda x: x.to(d), tree)
+    cache = cph.empty_contact_cache(b.active.shape[0], params.max_pairs, device=b.pos.device)
+    err = {"pos": 0.0, "quat": 0.0, "vel": 0.0, "omega": 0.0, "lam": 0.0}
+    compared = flipped_envs = 0
+    for i in range(steps):
+        bc, cc = to(b, cpu), to(cache, cpu)
+        # this step's contacts on both devices: where may validity flip
+        bi = cph.integrate_velocities(b, params.dt, params.gravity)
+        bci = cph.integrate_velocities(bc, params.dt, params.gravity)
+        pairs = cph.broadphase_pairs(bci, params.max_pairs)
+        v_card = cph.generate_contacts(bi, *(x.to(b.pos.device) for x in pairs[:3])).valid.cpu()
+        v_cpu = cph.generate_contacts(bci, *pairs[:3]).valid
+        rows = torch.cat([pc.shape_centers(bci), bci.quat,
+                          bci.shape.float()[..., None], bci.size], -1)
+        take = lambda idx: torch.gather(rows, 1, idx.long()[..., None].expand(idx.shape + (11,)))
+        ra, rb = take(pairs[0]), take(pairs[1])
+        unpack = lambda r: (r[..., 0:3], r[..., 3:7], r[..., 7].int(), r[..., 8:11])
+        depth = pc._pair_candidates(*unpack(ra), *unpack(rb))[2]
+        graze = ((depth.abs() < GRAZE).any(-1) & pairs[2]).repeat_interleave(4, 1)
+        diff = v_card != v_cpu
+        if (diff & ~graze).any():
+            fail(f"conventional card vs cpu step {i}: validity differs off graze depth")
+        ok = ~diff.any(1)
+        flipped_envs += int((~ok).sum())
+        b, cache, st = cph.step_bodies_cached(b, params, cache)
+        bc, cc, stc = cph.step_bodies_cached(bc, params, cc)
+        for k in ("pairs", "pair_overflow"):
+            if not torch.equal(st[k].cpu(), stc[k]):
+                fail(f"conventional card vs cpu step {i}: {k} differ")
+        for k in ("contacts", "trigger_overlaps"):
+            if not torch.equal(st[k].cpu()[ok], stc[k][ok]):
+                fail(f"conventional card vs cpu step {i}: {k} differ")
+        for f in ("pos", "quat", "vel", "omega"):
+            d = (getattr(b, f).cpu()[ok] - getattr(bc, f)[ok]).abs()
+            err[f] = max(err[f], d.max().item() if d.numel() else 0.0)
+        d = (cache.lam.cpu()[ok] - cc.lam[ok]).abs()
+        err["lam"] = max(err["lam"], d.max().item() if d.numel() else 0.0)
+        if not (torch.equal(cache.key_a.cpu()[ok], cc.key_a[ok])
+                and torch.equal(cache.cand.cpu()[ok], cc.cand[ok])):
+            fail(f"conventional card vs cpu step {i}: cache keys or candidate ids differ")
+        compared += int(ok.sum())
+    return err, compared, flipped_envs
+
+
+def conventional_phase(card, fused_rate, dev=None, cpu=None):
+    """Phase 14: scx's conventional rigid-body step (scx_torch.physics'
+    step_bodies_cached: plain PyTorch, as scx's is plain XLA) on the card:
+    tests/test_physics_solver.py's scenes and gates, the card against the
+    CPU re-synced every step, two runs bit for bit, and the pile fleet's
+    rate beside phase 4's fused rate (`fused_rate`)."""
+    import torch
+
+    from scx_torch import physics as cph
+    from scx_torch.core import math3d as m3
+    from scx_torch.physics import fleet
+    from scx_torch.physics import planar as pp
+    from scx_torch.physics import solver as csolver
+    from scx_torch.timing import cuda_ms
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    cpu = torch.device("cpu") if cpu is None else cpu
+    rec = {}
+
+    # ---- 14.1 scx's solver-suite scenes and their gates ----
+    for name, boxes, cols, rots, fields_, steps, gate in conventional_scenes():
+        b = fleet.build_ground_scene(boxes, device=dev, **cols)
+        for row, (rx, ry, rz) in rots.items():
+            t = lambda a: torch.tensor(a, dtype=torch.float32)
+            b.quat[0, row] = m3.quat_from_euler_xyz(t(rx), t(ry), t(rz)).to(dev)
+        params = cph.SolverParams(**fields_)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b, cache, ovf = conventional_run(b, params, steps)
+        got, ok = gate(b)
+        secs = time.perf_counter() - t0
+        launches = device_launches(lambda: cph.step_bodies_cached(b, params, cache))
+        print(json.dumps({"check": f"conventional {name}", "steps": steps, **fields_, **got,
+                          "pair_overflow": int(ovf), "seconds": secs,
+                          "launches_per_step": launches, "card": card}), flush=True)
+        if not ok or not torch.isfinite(b.pos).all():
+            fail(f"conventional {name}: {got} outside scx's gate")
+        rec[name] = got
+        if params.colors:
+            # the first-fit colour scan alone: a loop over the pair slots
+            ia, ib, pv, _ = cph.broadphase_pairs(b, params.max_pairs)
+            scan = lambda: csolver._greedy_pair_colors(ia, ib, pv, b.inv_mass > 0, params.colors)
+            print(json.dumps({"check": "conventional colour scan", "pairs": params.max_pairs,
+                              "colors": params.colors, "launches": device_launches(scan),
+                              "ms": cuda_ms(scan, 5), "card": card}), flush=True)
+
+    # ---- 14.2 the card against the CPU, re-synced every step ----
+    mixed = pp.rigid_from_planar(fleet.build_mixed_fleet(CONV_SYNC_ENVS, 24, 5, dev))
+    for colors in (0, 4):
+        params = cph.SolverParams(max_pairs=64, iterations=8, colors=colors)
+        b = conventional_run(mixed, params, CONV_SYNC_WARM)[0]
+        err, compared, flipped = conventional_resynced(b, params, CONV_SYNC_STEPS, cpu)
+        print(json.dumps({"check": "conventional card vs cpu", "colors": colors,
+                          "envs": CONV_SYNC_ENVS, "steps": CONV_SYNC_STEPS,
+                          "compared_env_steps": compared, "graze_flipped_env_steps": flipped,
+                          **{f"{k}_max_abs_err": v for k, v in err.items()},
+                          "card": card}), flush=True)
+        if compared < CONV_SYNC_ENVS * CONV_SYNC_STEPS // 2:
+            fail(f"conventional card vs cpu: only {compared} env-steps compared")
+        if not (err["pos"] <= 1e-5 and err["quat"] <= 1e-5 and err["vel"] <= 1e-4
+                and err["omega"] <= 1e-4 and err["lam"] <= 1e-4):
+            fail(f"conventional card vs cpu: {err} past pos/quat 1e-5, vel/omega/lam 1e-4")
+        rec[f"card_vs_cpu_colors_{colors}"] = {**err, "compared_env_steps": compared}
+
+    # ---- 14.3 two runs on the card, bit for bit ----
+    params = cph.SolverParams(max_pairs=64, iterations=8)
+    runs = [conventional_run(mixed, params, CONV_SYNC_WARM) for _ in range(2)]
+    same = all(torch.equal(getattr(runs[0][0], f), getattr(runs[1][0], f))
+               for f in ("pos", "quat", "vel", "omega", "sleep_timer")) and all(
+        torch.equal(getattr(runs[0][1], f), getattr(runs[1][1], f))
+        for f in ("key_a", "key_b", "cand", "lam"))
+    print(json.dumps({"check": "conventional reruns bit-equal", "steps": CONV_SYNC_WARM,
+                      "envs": CONV_SYNC_ENVS, "equal": same}), flush=True)
+    if not same:
+        fail("conventional: two runs on the card differ")
+
+    # ---- 14.4 the rate on the pile fleet ----
+    params = cph.SolverParams(max_pairs=128, iterations=6, shape_kinds=("box",))
+    pile = pp.rigid_from_planar(fleet.build_pile_fleet(ENVS, BODIES, dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b, cache, ovf = conventional_run(pile, params, STEPS)
+    ovf = int(ovf.item())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        for _ in range(CONV_PROFILED_STEPS):
+            b, cache, _ = cph.step_bodies_cached(b, params, cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3 / CONV_PROFILED_STEPS
+    dev_us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(dev_us) / 1e3 / CONV_PROFILED_STEPS
+    out = {"metric": "conventional_env_steps_per_sec", "path": "torch",
+           "value": ENVS * STEPS / secs, "envs": ENVS, "bodies": BODIES, "steps": STEPS,
+           "seconds": secs, "pair_overflow": ovf,
+           "launches_per_step": len(dev_us) / CONV_PROFILED_STEPS,
+           "device_busy_ms_per_step": busy_ms,
+           "wall_ms_per_step": secs * 1e3 / STEPS,
+           "device_idle_share": max(0.0, 1.0 - busy_ms / (secs * 1e3 / STEPS)),
+           "profiled_wall_ms_per_step": wall_ms,
+           "fused_physics_env_steps_per_sec": fused_rate, "card": card}
+    print(json.dumps(out), flush=True)
+    if ovf or not torch.isfinite(b.pos).all() or not dev_us:
+        fail(f"conventional rate: pair_overflow {ovf}, finite {bool(torch.isfinite(b.pos).all())}")
+    rec["pile_rate"] = {k: out[k] for k in ("value", "launches_per_step",
+                                            "device_busy_ms_per_step", "device_idle_share")}
+    return rec
+
+
 def main():
     import torch
 
@@ -1634,8 +1893,9 @@ def main():
         torch.isfinite(x).all().item()
         for x in (*b.pos, *b.quat, *b.vel, *b.omega)
     )
+    fused_rate = ENVS * STEPS / secs
     print(json.dumps({"metric": "physics_env_steps_per_sec", "path": "cuda-kernel",
-                      "value": ENVS * STEPS / secs, "envs": ENVS, "bodies": BODIES,
+                      "value": fused_rate, "envs": ENVS, "bodies": BODIES,
                       "steps": STEPS, "seconds": secs, "card": card}), flush=True)
     if launches != STEPS:
         fail(f"the main path launched the middle kernel {launches} times in {STEPS} steps")
@@ -2083,6 +2343,9 @@ def main():
     alone += tools_alone
     sb.shutdown()
     del sb
+
+    # ---- 14. scx's conventional step (before phase 10, for the same reason)
+    conventional_phase(card, fused_rate)
 
     # ---- 10. each kernel alone: phases 3, 4b, 5 and 7's inputs, RL fleets --
     kernel_alone = {}

@@ -13,7 +13,8 @@ of meta data (`format` 1, `capacity`, `extra`), exactly as scx writes them:
     uint32 and read back into int64.
 
 So a save written by scx loads here and one written here loads into scx.
-scx's `load_legacy_contact_cache` (pre-planar cache saves) is not ported.
+`load_legacy_contact_cache` converts scx's pre-planar warm-start cache
+saves (the conventional step's ContactCache layout) into a PlanarCache.
 """
 
 from __future__ import annotations
@@ -131,3 +132,34 @@ def load_checkpoint(path: str, device=None):
     if state is None:
         return None
     return state, meta.get("extra", {})
+
+
+def load_legacy_contact_cache(path: str, max_pairs: int, device=None):
+    """A pre-planar ContactCache aux save (key_a / key_b [P], cand [P, K],
+    lam [P, 3 K] with (ln, l1, l2) minor) as the PlanarCache plane layout
+    ([1, K, P] planes, the lam components split) on `device` (the card
+    by default), so such save-games resume warm. None when `path` is not a
+    legacy-layout save of this capacity."""
+    from scx_torch import resolve_device
+    from scx_torch.physics.planar import PlanarCache
+
+    try:
+        data = np.load(path + ".npz")
+    except OSError:
+        return None
+    if set(data.files) != {"key_a", "key_b", "cand", "lam"}:
+        return None
+    ka, kb = data["key_a"], data["key_b"]
+    cand, lam = data["cand"], data["lam"]
+    if (
+        ka.shape != (max_pairs,)
+        or cand.ndim != 2
+        or cand.shape[0] != max_pairs
+        or lam.shape != (max_pairs, cand.shape[1] * 3)
+    ):
+        return None
+    lam3 = lam.reshape(max_pairs, cand.shape[1], 3)
+    device = resolve_device(device)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))[None].to(device)
+    return PlanarCache(key_a=t(ka), key_b=t(kb), cand=t(cand.T), lam_n=t(lam3[..., 0].T),
+                       lam_1=t(lam3[..., 1].T), lam_2=t(lam3[..., 2].T))

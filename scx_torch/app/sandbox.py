@@ -701,6 +701,11 @@ class Sandbox:
         self._tick_out = None
         fresh = empty_sync_cache(1, self.sim.solver.max_pairs, device=self.device)
         cached = checkpoint.load_aux_pytree(path + ".cache", fresh)
+        if cached is None:
+            # a pre-planar save (the ContactCache layout): converted, so it
+            # resumes warm instead of cold
+            cached = checkpoint.load_legacy_contact_cache(
+                path + ".cache", self.sim.solver.max_pairs, self.device)
         self._cache = cached if cached is not None else fresh
         self._bake_dirty = True  # restored static set needs a fresh bake
         return True

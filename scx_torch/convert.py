@@ -1,8 +1,9 @@
 """State of the JAX package, as numpy arrays, into the port's dataclasses.
 
 Inputs are the numpy pytrees that `jax.tree.map(np.asarray, x)` gives for
-scx's RigidBodies, PlanarBodies, PlanarCache and PlanarContacts (any
-leading fleet dims), EntityState (with a leading env axis), LaneArrays, MeshPool, DrawList,
+scx's RigidBodies, PlanarBodies, PlanarCache, PlanarContacts, ContactCache
+and Contacts (any leading fleet dims; the port's conventional step takes
+them with a leading env axis), EntityState (with a leading env axis), LaneArrays, MeshPool, DrawList,
 Materials and MipTextures, the policy parameter dicts of
 examples/train_ppo.py, and any object with SolverParams', RasterParams'
 or SimParams' attributes. Fields are read by attribute,
@@ -24,10 +25,12 @@ import numpy as np
 import torch
 
 from scx_torch import resolve_device
+from scx_torch.physics.contacts import Contacts
 from scx_torch.physics.planar import PlanarBodies, PlanarCache, PlanarContacts
 from scx_torch.physics.planes import Q4, V3
 from scx_torch.physics.rigid import RigidBodies
 from scx_torch.physics.solver import SolverParams
+from scx_torch.physics.warmstart import ContactCache
 from scx_torch.render.mesh import MeshPool
 from scx_torch.app.sandbox import SimParams
 from scx_torch.physics.vehicle import VehicleParams
@@ -80,6 +83,14 @@ def planar_cache(c, device=None) -> PlanarCache:
 
 def planar_contacts(c, device=None) -> PlanarContacts:
     return _convert(PlanarContacts, c, device)
+
+
+def contact_cache(c, device=None) -> ContactCache:
+    return _convert(ContactCache, c, device)
+
+
+def contacts(c, device=None) -> Contacts:
+    return _convert(Contacts, c, device)
 
 
 def numpy_tree(x):

@@ -141,6 +141,18 @@ def dot(a, b, dim=-1, keepdim=False):
     return (a * b).sum(dim=dim, keepdim=keepdim)
 
 
+def dot3(a, b):
+    """sum_i a_i b_i over a last dim of 3, in index order ((x0 + x1) + x2):
+    the 3-term contractions (einsum, dot) of scx's physics."""
+    x0, x1, x2 = (a * b).unbind(-1)
+    return (x0 + x1) + x2
+
+
+def mat_vec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """m [..., 3, 3] @ v [..., 3], each row's 3-term sum in index order."""
+    return dot3(m, v[..., None, :])
+
+
 def normalize(v, eps=EPSILON):
     n = torch.sqrt(torch.clamp(dot(v, v, keepdim=True), min=0.0))
     return v / torch.clamp(n, min=eps)

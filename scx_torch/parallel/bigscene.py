@@ -3,8 +3,8 @@ spatial physics strips plus row strips of its frame.
 
 Per step:
   1. physics: each shard owns the bodies of its x-strip and advances them
-     with ghost-halo exchange and ownership migration
-     (scx_torch.parallel.spatial);
+     with ghost-halo exchange and ownership migration through the
+     conventional step, as scx's (scx_torch.parallel.spatial);
   2. pose gather: every shard gathers the whole fleet's poses (a few KB a
      strip) and builds the whole draw list;
   3. render: each shard rasterizes only its strip of rows

@@ -16,12 +16,10 @@ Scheme (ghost-particle domain decomposition, as scx):
     into the receiver's free slots (fixed migration capacity; overflow is
     counted, never silent).
 
-The local solve is the port's plane-layout step (`planar_from_rigid` ->
-`step_planar_cached` with an empty cache -> `rigid_from_planar`) where scx
-calls its conventional solver (`solver.step_bodies_cached`); the two agree
-within tests/test_physics_planar.py's trajectory tolerances. With local
-shards the S strips' [N + 2 halo_cap] body sets step as one fleet of S envs:
-one kernel launch per step.
+The local solve is scx's: the conventional step
+(`solver.step_bodies_cached`) with an empty contact cache on the combined
+[N + 2 halo_cap] bodies. With local shards the S strips' body sets step
+as one batch of S scenes.
 
 Every per-shard tensor carries the shards held here on its leading axis:
 [S_local, N, ...] (scx_torch.parallel.mesh).
@@ -35,9 +33,9 @@ import torch
 
 from scx_torch.core.tree import tree_map
 from scx_torch.parallel.mesh import Mesh
-from scx_torch.physics import planar as pp
 from scx_torch.physics.rigid import RigidBodies
-from scx_torch.physics.solver import SolverParams
+from scx_torch.physics.solver import SolverParams, step_bodies_cached
+from scx_torch.physics.warmstart import empty_contact_cache
 
 
 def _take_rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -109,16 +107,6 @@ def splice_rows(local, incoming, field: str = "active", free_mask=None):
     return out, dropped
 
 
-def planar_rigid_step(bodies: RigidBodies, params: SolverParams):
-    """One step of a fleet of rigid-body sets [E, N] with an empty contact
-    cache, through the port's plane-layout step (the strip's local solve).
-    Returns (bodies, per-env stats [E])."""
-    e = bodies.active.shape[0]
-    cache = pp.empty_planar_cache(e, params.max_pairs, device=bodies.active.device)
-    pb, _, stats = pp.step_planar_cached(pp.planar_from_rigid(bodies), params, cache)
-    return pp.rigid_from_planar(pb), stats
-
-
 def make_spatial_step(
     mesh: Mesh,
     params: SolverParams,
@@ -150,8 +138,9 @@ def make_spatial_step(
                             local, from_left, from_right)
 
         # the local solve on [N + 2 halo_cap]; ghost post-states dropped
-        n = local.active.shape[-1]
-        stepped, solve_stats = planar_rigid_step(combined, params)
+        s_local, n = local.active.shape
+        cache = empty_contact_cache(s_local, params.max_pairs, device=local.active.device)
+        stepped, _, solve_stats = step_bodies_cached(combined, params, cache)
         local = tree_map(lambda a: a[:, :n], stepped)
 
         # ownership migration

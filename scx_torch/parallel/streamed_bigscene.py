@@ -14,7 +14,9 @@ the mesh's 'sp' strips.
   * Streamed spawns take uids from a monotonic range above the S N initial
     ids (assign_global_uids), so a recycled slot never collides with a
     migrated entity that still carries that slot's first id, and the
-    warm-start cache keys stay unique over the whole world.
+    warm-start cache keys stay unique over the whole world. Within one
+    streaming tick the strips take their uids in strip order, each in its
+    own spawn order, as if one allocator served the strips one by one.
 
 Per frame: every strip's partition.update() pumps its loads, activations
 and despawns on the host, then one sharded device step advances traffic,
@@ -23,11 +25,16 @@ vehicles and physics with halo exchange and migration
 
 The strips must cover the streamed world: a sector is owned by the strip
 of its x midpoint (strip_of_sector), and one outside [x0, x0 + S W) has no
-owner and never loads. The strips are local shards of one process (the
-state is one [S, N] tensor tree).
+owner and never loads. The mesh's strips are local shards of one process
+(the state is one [S, N] tensor tree, every strip's partition runs here)
+or ranks (each rank holds its strip's [1, N] shard and runs only that
+strip's partition; the tick's spawn counts are gathered over 'sp' to give
+every strip its uid range).
 """
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -40,16 +47,16 @@ from scx_torch.world.streaming import WorldPartition
 
 
 class StripPartition(WorldPartition):
-    """WorldPartition whose device writes land in row `strip` of an [S, N]
-    state, restricted to rows [0, stream_rows).
+    """WorldPartition whose device writes land in row `strip` of an
+    [S_local, N] state, restricted to rows [0, stream_rows).
 
     Slot bookkeeping (self._alive / _free) is the strip's streamed region;
     the `capacity` given to the base class is stream_rows."""
 
-    def __init__(self, strip: int, uid_alloc, *args, **kw):
+    def __init__(self, strip: int, *args, **kw):
         super().__init__(*args, **kw)
-        self.strip = strip
-        self._uid_alloc = uid_alloc  # callable(n) -> np.ndarray of fresh uids
+        self.strip = strip      # the row of the state this process holds
+        self.spawned = []       # this tick's spawned slots, in spawn order
 
     def _row_mask(self, state, cols: torch.Tensor) -> torch.Tensor:
         """[S, k] bool: cols [k] in the strip's row, false elsewhere."""
@@ -70,7 +77,10 @@ class StripPartition(WorldPartition):
             return state
         dev = state.alive.device
         cols = {k: v.to(dev) for k, v in cols.items()}
-        cols["uid"] = torch.from_numpy(self._uid_alloc(len(slots))).to(dev)
+        # the tick's uids are known once every strip has spawned
+        # (StreamedBigScene.update_streaming writes them)
+        cols["uid"] = torch.full((len(slots),), -1, dtype=torch.int32, device=dev)
+        self.spawned.extend(slots)
         slot_t = torch.tensor(slots, dtype=torch.int64, device=dev)
         valid = self._row_mask(state, torch.ones(len(slots), dtype=torch.bool))
         return ent.spawn_entities(state, slot_t, valid, **cols)
@@ -85,9 +95,9 @@ class StripPartition(WorldPartition):
 class StreamedBigScene:
     """Host controller for a streamed, spatially sharded world.
 
-    state: [S, N] EntityState over the mesh's 'sp' strips, local shards
-    (uids are re-tagged globally unique here). Rows [0, stream_rows) of each
-    strip belong to streaming; place dynamic agents in rows
+    state: [S_local, N] EntityState, the strips of the mesh's 'sp' axis held
+    here (uids are re-tagged globally unique here). Rows [0, stream_rows)
+    of each strip belong to streaming; place dynamic agents in rows
     [stream_rows, N)."""
 
     def __init__(
@@ -102,8 +112,6 @@ class StreamedBigScene:
         world_root: str | None = None,
         asset_resolver=None,
     ):
-        if mesh.ranks:
-            raise ValueError("StreamedBigScene streams the local shards of one process")
         self.mesh = mesh
         self.n_shards = mesh.shape["sp"]
         self.x0 = float(x0)
@@ -111,19 +119,14 @@ class StreamedBigScene:
         self.stream_rows = stream_rows
         self.capacity = state.alive.shape[1]
         assert stream_rows <= self.capacity
-        self.state = assign_global_uids(state)
+        self.state = assign_global_uids(state, mesh)
         self._next_uid = self.n_shards * self.capacity
-
-        def alloc_uids(n: int) -> np.ndarray:
-            out = np.arange(self._next_uid, self._next_uid + n, dtype=np.int32)
-            self._next_uid += n
-            return out
 
         ss = config.sector_size_meters
         self.partitions = []
-        for k in range(self.n_shards):
-            p = StripPartition(k, alloc_uids, config, budgets, stream_rows,
-                               world_root=world_root, asset_resolver=asset_resolver)
+        for row, k in enumerate(mesh.axis_index("sp").tolist()):
+            p = StripPartition(row, config, budgets, stream_rows, world_root=world_root,
+                               asset_resolver=asset_resolver)
             p.sector_filter = lambda c, k=k: self.strip_of_sector(c, ss) == k
             self.partitions.append(p)
 
@@ -134,10 +137,25 @@ class StreamedBigScene:
         return k if 0 <= k < self.n_shards else -1
 
     def update_streaming(self, camera_pos, camera_forward=(0.0, 0.0, 1.0)):
-        """One host streaming tick over every strip (loads, budgeted
-        activation scatters, amortized despawns)."""
+        """One host streaming tick over the strips held here (loads,
+        budgeted activation scatters, amortized despawns), then the uids
+        of the tick's spawns."""
         for p in self.partitions:
+            p.spawned = []
             self.state = p.update(self.state, camera_pos, camera_forward)
+        dev = self.state.alive.device
+        counts = torch.tensor([len(p.spawned) for p in self.partitions], dtype=torch.int64,
+                              device=dev)
+        every = self.mesh.all_gather(counts, "sp")              # [S] in strip order
+        first = self._next_uid + torch.cumsum(every, 0) - every
+        self._next_uid += int(every.sum())
+        if int(every.sum()):
+            uid = self.state.uid.clone()
+            for p, k in zip(self.partitions, self.mesh.axis_index("sp").tolist()):
+                slots = torch.tensor(p.spawned, dtype=torch.int64, device=dev)
+                uid[p.strip, slots] = (first[k] + torch.arange(len(p.spawned), device=dev)
+                                       ).to(uid.dtype)
+            self.state = replace(self.state, uid=uid)
         return self.state
 
     @property

@@ -4,7 +4,9 @@
 `build_batch` makes for the JAX package (one static slab and N-1 boxes
 per env, positions from the scx hash PRNG). `build_mixed_fleet` makes
 scenes of boxes, spheres and capsules from numpy, like the mixed scenes
-of scx's planar tests.
+of scx's planar tests. `build_ground_scene` makes the scenes of scx's
+solver tests (tests/test_physics_solver.py's make_ground_scene) for the
+conventional step.
 """
 
 from __future__ import annotations
@@ -69,6 +71,30 @@ def build_mixed_fleet(envs: int, bodies: int, seed: int, device=None) -> pp.Plan
     fleet = pp.planar_from_rigid(make_bodies(
         pos, quat=quat, size=size, shape=shape, body_type=body_type, vel=vel))
     return pp.map_tensors(lambda t: t.contiguous().to(device), fleet)
+
+
+def build_ground_scene(boxes, n_pad: int = 0, device=None, **columns):
+    """One scene [1, N] of tests/test_physics_solver.py's make_ground_scene
+    on `device` (the card by default): a static 64 x 0.1 x 64 slab whose
+    top is y = -0.5, then unit boxes at `boxes` [k, 3], then n_pad
+    inactive rows. `columns` override make_bodies' arguments ([N, ...]
+    arrays); the rigid-body layout (RigidBodies), for the conventional
+    step."""
+    device = resolve_device(device)
+    k = len(boxes)
+    n = 1 + k + n_pad
+    pos = np.zeros((n, 3), np.float32)
+    pos[0, 1] = -0.55
+    pos[1:1 + k] = boxes
+    size = np.full((n, 3), 0.5, np.float32)
+    size[0] = (32.0, 0.05, 32.0)
+    body_type = np.full(n, BODY_DYNAMIC, np.int32)
+    body_type[0] = BODY_STATIC
+    cols = dict(size=size, body_type=body_type, active=np.arange(n) < 1 + k)
+    cols.update(columns)
+    return make_bodies(torch.from_numpy(pos[None]).to(device),
+                       **{c: torch.as_tensor(np.asarray(v)[None]).to(device)
+                          for c, v in cols.items()})
 
 
 def rollout(bodies: pp.PlanarBodies, cache: pp.PlanarCache,

@@ -35,7 +35,7 @@ import torch
 
 from scx_torch import _build, resolve_device
 from scx_torch.physics import planes as pl
-from scx_torch.physics.broadphase import compact_flat_indices
+from scx_torch.physics.broadphase import aabb_pairs
 from scx_torch.physics.contacts import MAX_CONTACTS_PER_PAIR, N_CANDIDATES
 from scx_torch.physics.planes import Q4, V3
 from scx_torch.physics.rigid import (
@@ -44,6 +44,7 @@ from scx_torch.physics.rigid import (
     RigidBodies,
 )
 from scx_torch.physics.solver import SolverParams
+from scx_torch.physics.warmstart import _pair_keys, key_match
 
 _FACE_BIAS_REL = 0.95
 _EPS = 1e-7
@@ -179,7 +180,6 @@ def planar_broadphase(b: PlanarBodies, max_pairs: int, margin: float = 0.02):
     """Returns (ia, ib [E, P] i32, valid [E, P] bool, n_candidates [E] i32):
     the first max_pairs overlapping pairs i < j in flat (i, j) order, as
     scx's planar_broadphase gives them."""
-    n = b.n
     r = pl.q_to_mat(b.quat)
     box_ext = pl.mvec(pl.mabs(r), b.size)
     rad = b.size.x
@@ -189,32 +189,8 @@ def planar_broadphase(b: PlanarBodies, max_pairs: int, margin: float = 0.02):
     is_sph = b.shape == SHAPE_SPHERE
     ext = pl.vwhere(is_box, box_ext, pl.vwhere(is_sph, sph_ext, cap_ext))
     center = _shape_centers(b)
-    lo = center - ext - margin
-    hi = center + ext + margin
-
-    def outer(f, a, c):
-        return f(a[..., :, None], c[..., None, :])
-
-    overlap = torch.ones((), dtype=torch.bool, device=b.shape.device)
-    for l, h in zip(lo, hi):
-        overlap = overlap & outer(torch.le, l, h) & outer(torch.ge, h, l)
-    dyn = b.inv_mass > 0
-    layer_ok = (outer(torch.bitwise_and, b.layer, b.mask) != 0) & (
-        outer(torch.bitwise_and, b.mask, b.layer) != 0
-    )
-    upper = torch.ones((n, n), dtype=torch.bool, device=overlap.device).triu(1)
-    valid = (
-        overlap
-        & outer(torch.logical_or, dyn, dyn)
-        & layer_ok
-        & outer(torch.logical_and, b.active, b.active)
-        & upper
-    ).reshape(overlap.shape[:-2] + (n * n,))
-    kflat, n_valid = compact_flat_indices(valid, max_pairs)
-    ia = kflat // n
-    ib = kflat - ia * n
-    val = torch.arange(max_pairs, device=ia.device) < n_valid[..., None]
-    return ia, ib, val, n_valid
+    return aabb_pairs(center - ext - margin, center + ext + margin, b.inv_mass, b.layer,
+                      b.mask, b.active, max_pairs)
 
 
 # ---------------------------------------------------------------------------
@@ -669,36 +645,17 @@ def empty_planar_cache(envs: int, max_pairs: int, device=None) -> PlanarCache:
     )
 
 
-def _pair_keys(ia, ib, pair_valid, key_id=None):
-    """Warm-start keys per pair: body indices, or key_id [E, N] (an integer
-    gather, so uids past 2^24 stay exact)."""
-    if key_id is None:
-        ka, kb = ia, ib
-    else:
-        ka = torch.gather(key_id, -1, ia.long())
-        kb = torch.gather(key_id, -1, ib.long())
-    ka = torch.where(pair_valid, ka, _EMPTY).to(torch.int32)
-    kb = torch.where(pair_valid, kb, _EMPTY).to(torch.int32)
-    return ka, kb
-
-
 def _warm_prev(cache: PlanarCache, ka, kb, pair_valid):
     """The key-matched previous pair record [E, 4K, P]: cand+1 rows, then
     lam_n / lam_1 / lam_2 rows; zeros where a pair has no match."""
-    match = (
-        (ka[..., :, None] == cache.key_a[..., None, :])
-        & (kb[..., :, None] == cache.key_b[..., None, :])
-        & pair_valid[..., :, None]
-        & (cache.key_a != _EMPTY)[..., None, :]
-    )  # [E, P_new, P_old]; keys are unique, so at most one hit per row
+    hit, j = key_match(ka, kb, pair_valid, cache.key_a, cache.key_b)
     old = torch.cat(
         [(cache.cand + 1).to(torch.float32), cache.lam_n, cache.lam_1,
          cache.lam_2],
         dim=-2,
     )  # [E, 4K, P_old]
-    j = match.to(torch.int32).argmax(-1)
     prev = torch.gather(old, -1, j[..., None, :].expand(old.shape[:-1] + j.shape[-1:]))
-    return torch.where(match.any(-1)[..., None, :], prev, 0.0)
+    return torch.where(hit[..., None, :], prev, 0.0)
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ bit sets in scx; here they are int64 so that `0xFFFFFFFF & x` is exact.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
 from scx_torch.core import math3d as m3
@@ -161,3 +162,52 @@ def inv_inertia_world(bodies: RigidBodies) -> torch.Tensor:
 def shape_centers(bodies: RigidBodies) -> torch.Tensor:
     """World collider centers: pos + R @ shape_offset, [..., N, 3]."""
     return bodies.pos + m3.quat_rotate(bodies.quat, bodies.shape_offset)
+
+
+def body_aabbs(bodies: RigidBodies):
+    """World AABBs per body (lo, hi) [..., N, 3], for the broadphase.
+
+    Box: |R| @ half extents; sphere: radius; capsule: rotated axis + radius."""
+    r = m3.quat_to_mat3(bodies.quat)
+    box_ext = m3.mat_vec(r.abs(), bodies.size)
+    rad = bodies.size[..., 0]
+    sph_ext = rad[..., None].expand(box_ext.shape)
+    cap_ext = r[..., :, 1].abs() * bodies.size[..., 1:2] + rad[..., None]
+    shape_b = bodies.shape[..., None]
+    ext = torch.where(
+        shape_b == SHAPE_BOX, box_ext, torch.where(shape_b == SHAPE_SPHERE, sph_ext, cap_ext)
+    )
+    center = shape_centers(bodies)
+    return center - ext, center + ext
+
+
+def integrate_velocities(bodies: RigidBodies, dt, gravity, ext_force=None, ext_torque=None):
+    """Semi-implicit Euler velocity update with Bullet-style damping
+    (vel *= (1 - damping)^dt); ext_force / ext_torque [..., N, 3] optional."""
+    dyn = ((bodies.inv_mass > 0) & bodies.active)[..., None]
+    # the f32 product, as scx computes g * dt on the device
+    g_dt = torch.tensor([0.0, float(np.float32(gravity) * np.float32(dt)), 0.0],
+                        dtype=torch.float32, device=bodies.vel.device)
+    vel = bodies.vel + torch.where(dyn, g_dt, 0.0)
+    omega = bodies.omega
+    if ext_force is not None:
+        vel = vel + torch.where(dyn, ext_force * bodies.inv_mass[..., None] * dt, 0.0)
+    if ext_torque is not None:
+        omega = omega + torch.where(dyn, m3.mat_vec(inv_inertia_world(bodies), ext_torque) * dt,
+                                    0.0)
+    lin_d = torch.pow((1.0 - bodies.lin_damping).clamp(0.0, 1.0), dt)[..., None]
+    ang_d = torch.pow((1.0 - bodies.ang_damping).clamp(0.0, 1.0), dt)[..., None]
+    return replace(bodies, vel=vel * lin_d, omega=omega * ang_d)
+
+
+def integrate_positions(bodies: RigidBodies, dt):
+    """x += v dt; q integrated from omega. Static and kinematic bodies with
+    zero velocity stay put."""
+    moving = bodies.active & (
+        (bodies.inv_mass > 0)
+        | ((bodies.vel * bodies.vel + bodies.omega * bodies.omega).sum(-1) > 0)
+    )
+    pos = bodies.pos + torch.where(moving[..., None], bodies.vel * dt, 0.0)
+    quat = torch.where(moving[..., None], m3.quat_integrate(bodies.quat, bodies.omega, dt),
+                       bodies.quat)
+    return replace(bodies, pos=pos, quat=quat)

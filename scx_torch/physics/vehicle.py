@@ -192,12 +192,6 @@ class WheelRuntime:
     side_impulse: torch.Tensor
 
 
-def mat_vec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """m [..., 3, 3] @ v [..., 3], each row's 3-term sum in index order."""
-    p = [m[..., :, j] * v[..., j, None] for j in range(3)]
-    return (p[0] + p[1]) + p[2]
-
-
 def vehicle_forces(bodies: RigidBodies, chassis, wheels: WheelConfig, engine_force,
                    brake_force, steer_angle, handbrake_force, params, dt, iw):
     """Suspension + tire impulses of vehicles chassis [E, V] (body indices).
@@ -233,9 +227,9 @@ def vehicle_forces(bodies: RigidBodies, chassis, wheels: WheelConfig, engine_for
     radius = w(params.wheel_radius)
     ray_len = rest + radius  # [E, V, 1]
 
-    hard = pos[..., None, :] + mat_vec(r3[..., None, :, :], wheels.conn)  # [E, V, 4, 3]
+    hard = pos[..., None, :] + m3.mat_vec(r3[..., None, :, :], wheels.conn)  # [E, V, 4, 3]
     sq = m3.quat_from_axis_angle(up_w[..., None, :], w_steer)
-    axle0 = mat_vec(r3, torch.tensor([-1.0, 0.0, 0.0], device=pos.device))
+    axle0 = m3.mat_vec(r3, torch.tensor([-1.0, 0.0, 0.0], device=pos.device))
     axle_w = m3.quat_rotate(sq, axle0[..., None, :].expand_as(hard))
     e, v = chassis.shape
     flat = lambda x: x.reshape(e, v * 4, *x.shape[3:])
@@ -276,7 +270,7 @@ def vehicle_forces(bodies: RigidBodies, chassis, wheels: WheelConfig, engine_for
     iw4 = iw[..., None, :, :]
 
     def eff_mass_at(d, r):
-        ang = m3.cross(mat_vec(iw4, m3.cross(r, d)), r)
+        ang = m3.cross(m3.mat_vec(iw4, m3.cross(r, d)), r)
         return 1.0 / torch.clamp(w(inv_mass) + m3.dot(d, ang), min=1e-9)
 
     vel_c = vel4 + m3.cross(omega4, r_c)
@@ -304,7 +298,7 @@ def vehicle_forces(bodies: RigidBodies, chassis, wheels: WheelConfig, engine_for
     side_vec = side * side_imp[..., None]
     d_vel = (imp_total + side_vec).sum(dim=-2) * inv_mass[..., None]
     torque = m3.cross(r_c, imp_total) + m3.cross(r_side, side_vec)
-    d_omega = mat_vec(iw, torque.sum(dim=-2))
+    d_omega = m3.mat_vec(iw, torque.sum(dim=-2))
 
     rt = WheelRuntime(
         susp_len=susp_len, in_contact=in_contact, contact_point=contact, contact_normal=n,

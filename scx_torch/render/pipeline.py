@@ -134,6 +134,26 @@ def sort_draws_spatial(draws: DrawList, view_proj, params) -> DrawList:
     )
 
 
+def expand_draws(draws: DrawList, pool: MeshPool, max_tris: int):
+    """Flatten a draw list [D] into per-triangle (draw_idx, tri_idx) pairs.
+
+    Returns (tri_draw [T], tri_pool [T], live [T]) i32 / bool with
+    T = max_tris; draws past the capacity are dropped (the draw budget).
+    A triangle's draw is the last draw whose first triangle is at or
+    before it (scx marks the starts with a scatter and takes a cumsum;
+    a sorted search gives the same index)."""
+    counts = torch.where(draws.valid, pool.mesh_tri_count[draws.mesh_id.long()], 0).to(_I32)
+    cum = torch.cumsum(counts, 0, dtype=_I32)
+    total = cum[-1]
+    starts = cum - counts
+    e = torch.arange(max_tris, dtype=_I32, device=counts.device)
+    draw_idx = (torch.searchsorted(starts, e, right=True).to(_I32) - 1).clamp(
+        0, counts.shape[0] - 1)
+    local = e - starts[draw_idx.long()]
+    tri_pool = pool.mesh_first_tri[draws.mesh_id.long()][draw_idx.long()] + local
+    return draw_idx, tri_pool.to(_I32), e < total
+
+
 def _near_clip_cols(cw, pos_cols, attr_cols, live, extra_cap: int, eps: float):
     """Near-plane (w > eps) polygon clipping on [..., T] columns (one scene,
     or one row per env).

@@ -1,5 +1,6 @@
-"""scx_torch broadphase vs scx: pair-list compaction and the planar
-broadphase must agree exactly (pair order, indices, validity, counts)."""
+"""scx_torch broadphase vs scx: pair-list compaction, the planar
+broadphase and the conventional step's broadphase_pairs must agree
+exactly (pair order, indices, validity, counts)."""
 
 import jax
 import jax.numpy as jnp
@@ -11,9 +12,11 @@ from scx import physics as ph
 from scx.core import math3d as jm3
 from scx.physics import planar as jpp
 from scx.physics.broadphase import compact_flat_indices as j_compact
+import scx_torch.physics as tph
 from scx_torch import convert
 from scx_torch.physics import planar as tp
 from scx_torch.physics.broadphase import compact_flat_indices as t_compact
+from tests.torch_render_scenes import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("force_blockrank", [False, True])
@@ -102,3 +105,22 @@ def test_planar_broadphase_exact(with_caps, filters, max_pairs):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     if max_pairs == 16:
         assert (np.asarray(want[3]) > max_pairs).any()  # overflow is exercised
+
+
+@pytest.mark.parametrize("with_caps,filters,max_pairs", [
+    (False, False, 128), (True, True, 64), (False, True, 16),
+])
+def test_broadphase_pairs_exact(with_caps, filters, max_pairs):
+    """The conventional step's broadphase_pairs on the same scenes as the
+    planar broadphase (capsule and sphere extents, collider offsets,
+    layer filters, inactive bodies, an overflowing cap): pairs, validity
+    and candidate counts exact."""
+    rig = _stack([_rigid_scene(40, 10 + e, with_caps, filters) for e in range(4)])
+    want = jax.jit(jax.vmap(lambda b: ph.broadphase_pairs(b, max_pairs)))(rig)
+    got = tph.broadphase_pairs(convert.rigid_bodies(jax.tree.map(np.asarray, rig), "cpu"),
+                               max_pairs)
+    assert int(np.asarray(want[3]).max()) > 0
+    for g, w, name in zip(got, want, ("ia", "ib", "valid", "n_candidates")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    if max_pairs == 16:
+        assert (np.asarray(want[3]) > max_pairs).any()

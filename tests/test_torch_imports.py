@@ -32,7 +32,9 @@ def test_port_imports_neither_jax_nor_scx():
                 "scx_torch.parallel.spatial", "scx_torch.parallel.bigscene",
                 "scx_torch.parallel.streamed_bigscene", "scx_torch.parallel.dryrun",
                 "scx_torch.app.debugui", "scx_torch.tools", "scx_torch.tools.asset_db",
-                "scx_torch.tools.editor", "scx_torch.tools.editor_app"):
+                "scx_torch.tools.editor", "scx_torch.tools.editor_app",
+                "scx_torch.physics.boxbox", "scx_torch.physics.warmstart",
+                "scx_torch.profile_spatial"):
         assert new in mods, new
     out = subprocess.run([sys.executable, "-c", _PROBE, *mods, "chip_smoke"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=True)

@@ -23,6 +23,7 @@ import torch
 
 from scx.core import math3d as jm3
 from scx_torch.core import math3d as tm3
+from tests.torch_render_scenes import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 

@@ -2,8 +2,11 @@
 gloo ranks (two processes spawned here, with a timeout of their own)
 against the same mesh as local shards in this process, on the same global
 input (tests/torch_dist_worker.py): 30 steps of the spatial strip step
-(two strips, a box that crosses) and a 3-step rollout_sharded of a 4-env
-RL fleet over 'dp'. The halo and migration hops are send/recv pairs there
+(two strips, a box that crosses), the streamed big scene's two strips
+(each rank streams its own strip's sectors and writes only its [1, N]
+shard; every column, the uids included, and the active sectors after
+settling around two cameras) and a 3-step rollout_sharded of a 4-env RL
+fleet over 'dp'. The halo and migration hops are send/recv pairs there
 and tensor shifts here; the sums are gathered and added in shard order in
 both."""
 
@@ -43,12 +46,17 @@ def test_gloo_ranks_equal_local_shards(tmp_path):
         assert p.returncode == 0, log[-3000:]
     ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
     assert local["stats"][:, 2].sum() >= 1  # "migrated": the box crossed
+    for i in range(len(w.CAMERAS)):  # both strips streamed their three sectors
+        assert local[f"s{i}_alive"][:, :w.STREAM_ROWS].any(1).all()
+        assert local[f"s{i}_sectors"].shape == (2, 3, 2)
     for r, got in enumerate(ranks):
         np.testing.assert_array_equal(got["stats"], local["stats"])
         for k in (k for k in local if k.startswith("b_")):
             np.testing.assert_array_equal(got[k], local[k][r:r + 1], err_msg=k)
             np.testing.assert_array_equal(got["g" + k[1:]], local[k], err_msg=k)
         np.testing.assert_array_equal(got["alive"], local["alive"])
+        for k in (k for k in local if k[0] == "s" and k[1].isdigit()):
+            np.testing.assert_array_equal(got[k], local[k][r:r + 1], err_msg=k)
         envs = slice(2 * r, 2 * r + 2)
         np.testing.assert_array_equal(got["means"], local["means"][:, envs])
         np.testing.assert_array_equal(got["rewards"], local["rewards"][:, envs])

@@ -4,13 +4,20 @@ slabs, boxes near the boundaries, a fast box that crosses from strip 1 into
 strip 2).
 
 scx steps its strips on the 8-device virtual CPU mesh with its
-conventional solver; the port steps them as local shards (one fleet of 4
-envs) through its plane-layout step, whose parity with that solver is
-tests/test_physics_planar.py::test_trajectory_parity's (boxes: positions
-and quaternions within 2e-3, equal contact counts). So the counts (active,
-migrated, both drops, pair overflow) must be equal every step, and the
-sorted active positions and quaternions within 2e-3; pack_rows and
-splice_rows are exact.
+conventional solver; the port steps them as local shards (one batch of 4
+scenes) through its port of that solver (scx_torch.physics.solver). Each
+of the 24 steps is checked twice against scx's step, run once (jitted):
+  * re-synced: the port steps scx's state of the step before; the counts
+    (active, migrated, both drops, pair overflow) equal scx's, and every
+    row's position, orientation and velocity is within 1e-5 of scx's
+    (scx's step is XLA-fused and rounds differently from the port's
+    op-by-op sums: 1.2e-7 at most here; a contact flipping at graze depth
+    would show);
+  * free: the port carries its own state from the start; the counts
+    equal scx's every step, and after 24 steps the sorted active
+    positions and quaternions are within 1e-5 (1.2e-7 here; the planar
+    step the port's strips ran before needed 2e-3).
+pack_rows and splice_rows are exact.
 """
 
 import jax
@@ -29,6 +36,7 @@ from scx_torch.parallel import spatial as tsp
 from scx_torch.physics.solver import SolverParams
 
 from tests.test_parallel_spatial import N_LOCAL, S, WIDTH, build_global_scene, shard_scene
+from tests.torch_render_scenes import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 24  # the fast box crosses x = 32 at step 20
 KW = dict(x0=0.0, shard_width=WIDTH, halo=3.0, halo_cap=8, mig_cap=8)
@@ -56,12 +64,20 @@ def test_spatial_step_matches_scx():
     tstep = tsp.spatial_sharded_step(mesh, convert.solver_params(jparams), **KW)
     migrated = 0
     for i in range(STEPS):
+        synced, sstats = tstep(convert.rigid_bodies(_numpy(jlocal), "cpu"))
         jlocal, jstats = jstep(jlocal)
         tlocal, tstats = tstep(tlocal)
         want = {k: int(v) for k, v in jstats.items()}
-        got = {k: int(v) for k, v in tstats.items()}
-        assert got == want, f"step {i}: {got} != {want}"
-        migrated += got["migrated"]
+        for tag, st in (("re-synced", sstats), ("free", tstats)):
+            got = {k: int(v) for k, v in st.items()}
+            assert got == want, f"step {i} {tag}: {got} != {want}"
+        np.testing.assert_array_equal(synced.active.numpy(), np.asarray(jlocal.active))
+        act = np.asarray(jlocal.active)
+        for f in ("pos", "quat", "vel"):
+            np.testing.assert_allclose(getattr(synced, f).numpy()[act],
+                                       np.asarray(getattr(jlocal, f))[act], rtol=0, atol=1e-5,
+                                       err_msg=f"step {i} {f}")
+        migrated += want["migrated"]
     assert migrated >= 1 and want["active"] == n
     assert want["halo_dropped"] == want["migration_dropped"] == want["pair_overflow"] == 0
     # the strips hold the same bodies (ownership moved the same way)
@@ -70,7 +86,7 @@ def test_spatial_step_matches_scx():
     got = _rows(tlocal.pos.numpy(), tlocal.quat.numpy(), tlocal.active.numpy())
     want = _rows(jlocal.pos, jlocal.quat, jlocal.active)
     assert got.shape == want.shape == (n, 7)
-    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("cap", [2, 5])

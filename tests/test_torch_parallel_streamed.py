@@ -23,6 +23,7 @@ from scx_torch.state import entity as ent
 from tests.test_parallel_streamed import (
     N_LOC, S, STREAM, W, _alive_rows, _pump_sharded, _sharded_state,
 )
+from tests.torch_render_scenes import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _budgets():

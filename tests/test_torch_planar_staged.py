@@ -29,6 +29,7 @@ from scx_torch import convert
 from scx_torch.physics import fleet
 from scx_torch.physics import planar as tp
 from test_physics_planar import _fleet_sat_inputs, mixed_scene
+from tests.torch_render_scenes import one_torch_thread  # noqa: F401 (autouse)
 
 ENVS = 8
 ALL_KINDS = ("box", "sphere", "capsule")

@@ -30,6 +30,7 @@ from scx.physics.solver import SolverParams
 from scx_torch import convert
 from scx_torch.physics import planar as tp
 from test_physics_planar import mixed_scene
+from tests.torch_render_scenes import one_torch_thread  # noqa: F401 (autouse)
 
 ENVS, STEPS, GRAZE = 4, 20, 1e-5
 ALL_KINDS = ("box", "sphere", "capsule")

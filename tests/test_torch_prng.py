@@ -15,6 +15,7 @@ from scx_torch import convert
 from scx_torch.core import math3d as tm3
 from scx_torch.core import prng as tprng
 from scx_torch.physics import fleet
+from tests.torch_render_scenes import one_torch_thread  # noqa: F401 (autouse)
 
 _EDGES = [0, 1, 2, 0x7FFFFFFF, 0x80000000, 0xDEADBEEF, 0xFFFFFFFE, 0xFFFFFFFF]
 

@@ -28,7 +28,7 @@ from scx.render import pipeline as jpipe
 from scx_torch.ops import raster as tr
 from scx_torch.ops import raster_clusters as trc
 from scx_torch.render import pipeline as tp
-from torch_render_scenes import city_setup_batched
+from torch_render_scenes import city_setup_batched, one_torch_thread  # noqa: F401 (autouse)
 
 ENVS = 3
 

@@ -31,7 +31,8 @@ from scx_torch.ops import raster as tr
 from scx_torch.ops import raster_clusters as trc
 from scx_torch.render import pipeline as tp
 
-from torch_render_scenes import city_setup, city_setup_batched, cluster_lists, hard_setup
+from torch_render_scenes import (  # noqa: F401 (one_torch_thread: autouse)
+    city_setup, city_setup_batched, cluster_lists, hard_setup, one_torch_thread)
 
 SRC = Path(tr.__file__).resolve().parent / "csrc" / "raster.cu"
 

@@ -20,7 +20,8 @@ from scx.render import pipeline as jpipe
 from scx_torch.ops import raster_clusters as trc
 from scx_torch.render import pipeline as tp
 
-from torch_render_scenes import EYE, TARGET, UP, params, scene_arrays
+from torch_render_scenes import (  # noqa: F401 (one_torch_thread: autouse)
+    EYE, TARGET, UP, params, scene_arrays, one_torch_thread)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "benchmarks"))
 from cityscene import build_city_mesh  # noqa: E402

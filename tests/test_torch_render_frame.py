@@ -29,6 +29,7 @@ from scx_torch.render import pipeline as tp
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "benchmarks"))
 from cityscene import build_city_mesh  # noqa: E402
+from tests.torch_render_scenes import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE = dict(width=320, height=192, tile_h=64, tile_w=128, max_tris=2048,
             max_clusters_per_tile=32)

@@ -28,7 +28,8 @@ from scx_torch.render import mesh as tmesh
 from scx_torch.render import pipeline as tp
 from scx_torch.render import staticbake as tsb
 
-from torch_render_scenes import EYE, TARGET, UP, params, scene_arrays
+from torch_render_scenes import (  # noqa: F401 (one_torch_thread: autouse)
+    EYE, TARGET, UP, params, scene_arrays, one_torch_thread)
 
 RTOL = ATOL = 1e-5
 

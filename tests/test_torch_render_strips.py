@@ -26,6 +26,7 @@ from scx_torch import convert
 from scx_torch.render import pipeline as tpipe
 
 from tests.test_render_strips import _scene
+from tests.torch_render_scenes import one_torch_thread  # noqa: F401 (autouse)
 
 STRIP = 16
 

@@ -29,6 +29,7 @@ from scx_torch import convert
 from scx_torch.rl import PPOConfig, gae, ppo_loss
 from scx_torch.rl import ppo as tppo
 from scx_torch.rl import train_ppo as tex
+from tests.torch_render_scenes import one_torch_thread  # noqa: F401 (autouse)
 
 t = lambda a: torch.from_numpy(np.array(a))
 

@@ -31,7 +31,7 @@ from scx_torch.app.rlenv import CityRLEnv as TEnv
 from scx_torch.app.rlenv import squash_raw_actions
 from scx_torch.rl import CityVectorEnv, PPOConfig, make_ppo_train_step
 from scx_torch.rl import train_ppo as tex
-from torch_render_scenes import to_scx_state
+from torch_render_scenes import to_scx_state, one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(capacity=48, obs_size=16, n_traffic=2)
 

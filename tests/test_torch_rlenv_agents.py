@@ -28,7 +28,8 @@ import torch
 from scx.app.rlenv import CityRLEnv as JEnv
 from scx_torch import convert
 from scx_torch.app.rlenv import CityRLEnv as TEnv
-from torch_render_scenes import leaves, sync_port, to_numpy
+from torch_render_scenes import (  # noqa: F401 (one_torch_thread: autouse)
+    leaves, sync_port, to_numpy, one_torch_thread)
 
 KW = dict(n_envs=2, capacity=48, obs_size=32, n_traffic=2, n_agents=3)
 WARM = 20

@@ -40,7 +40,8 @@ from scx_torch.state import entity as ent
 from scx_torch.traffic import ai as tai
 from scx_torch.traffic import lanes as tln
 from scx_torch.traffic import lod as tlod
-from torch_render_scenes import leaves, rl_actions, rl_envs, to_numpy, to_scx_state
+from torch_render_scenes import (  # noqa: F401 (one_torch_thread: autouse)
+    leaves, rl_actions, rl_envs, to_numpy, to_scx_state, one_torch_thread)
 
 FLOAT_TOL = 1e-5
 WARM_STEPS = 24

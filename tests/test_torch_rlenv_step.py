@@ -28,7 +28,8 @@ once for both paths, the env's observation and the reward). Contract
 
 import pytest
 
-from torch_render_scenes import ScxStepper, check_resynced_steps, rl_envs
+from torch_render_scenes import (  # noqa: F401 (one_torch_thread: autouse)
+    ScxStepper, check_resynced_steps, rl_envs, one_torch_thread)
 
 
 @pytest.fixture(scope="module")

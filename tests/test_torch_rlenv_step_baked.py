@@ -30,7 +30,8 @@ once for both paths, the env's observation and the reward). Contract
 import numpy as np
 import pytest
 
-from torch_render_scenes import ScxStepper, check_resynced_steps, rl_actions, rl_envs, sync_port
+from torch_render_scenes import (  # noqa: F401 (one_torch_thread: autouse)
+    ScxStepper, check_resynced_steps, rl_actions, rl_envs, sync_port, one_torch_thread)
 
 
 @pytest.fixture(scope="module")

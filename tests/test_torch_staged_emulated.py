@@ -22,6 +22,7 @@ from scx_torch.physics import planar as tp
 from scx_torch.physics.solver import SolverParams
 
 import torch_planar_emu
+from tests.torch_render_scenes import one_torch_thread  # noqa: F401 (autouse)
 
 SRC = Path(tp.__file__).resolve().parent / "csrc" / "planar_staged.cu"
 ALL_KINDS = ("box", "sphere", "capsule")

@@ -20,6 +20,7 @@ import torch
 from scx_torch.physics import fleet
 from scx_torch.physics import planar as tp
 from scx_torch.physics.solver import SolverParams
+from tests.torch_render_scenes import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_route_at_the_h100_limit():

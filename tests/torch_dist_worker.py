@@ -1,12 +1,14 @@
 """One rank of tests/test_torch_parallel_dist.py (not a test file): runs the
-port's spatial strip step and sharded rollout as rank shards of a gloo
-group and saves its part of the results.
+port's spatial strip step, the streamed big scene's strips and the
+sharded rollout as rank shards of a gloo group and saves its part of the
+results.
 
     python tests/torch_dist_worker.py RANK WORLD PORT OUT_DIR
 """
 
 import os
 import sys
+from concurrent.futures import Future
 
 import numpy as np
 import torch
@@ -14,6 +16,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from scx_torch.app.rlenv import CityRLEnv  # noqa: E402
+from scx_torch.convert import numpy_tree  # noqa: E402
+from scx_torch.core import jobs as jobs_mod  # noqa: E402
+from scx_torch.core.config import StreamingBudgets, WorldPartitionConfig  # noqa: E402
+from scx_torch.core.jobs import JobSystem  # noqa: E402
+from scx_torch.parallel.streamed_bigscene import StreamedBigScene  # noqa: E402
+from scx_torch.state import entity as ent  # noqa: E402
 from scx_torch.parallel import mesh as tm  # noqa: E402
 from scx_torch.parallel import spatial as tsp  # noqa: E402
 from scx_torch.physics.rigid import BODY_DYNAMIC, BODY_STATIC, make_bodies  # noqa: E402
@@ -24,6 +32,9 @@ SPATIAL = dict(x0=0.0, shard_width=WIDTH, halo=3.0, halo_cap=8, mig_cap=8)
 PARAMS = SolverParams(max_pairs=128, iterations=6, shape_kinds=("box",))
 RL = dict(n_envs=4, capacity=48, obs_size=16, n_traffic=2)
 RL_LEN = 3
+# the streamed strips: two 64 m sector columns, 640 rows a strip, 512 streamed
+STREAM_W, STREAM_N, STREAM_ROWS, STREAM_FRAMES = 64.0, 640, 512, 4
+CAMERAS = ((64.0, 0.0, 32.0), (64.0, 0.0, 32.0 + 4 * 64.0))
 ACTIONS = np.tile(np.asarray([0.6, 0.0, 0.05, 0.0], np.float32), (RL["n_envs"], 1))
 
 
@@ -50,6 +61,50 @@ def strip_scene():
     return b
 
 
+class InlineJobs(JobSystem):
+    """A job system that runs each async job at once, in the caller: sector
+    loads then finish inside the streaming tick that starts them, so
+    activation order and uids do not depend on thread timing."""
+
+    def dispatch_async(self, fn, *args) -> Future:
+        f = Future()
+        f.set_result(fn(*args))
+        return f
+
+
+def streamed(mesh):
+    """The streamed strips' state columns after settling around each
+    camera, and each strip's active sectors."""
+    budgets = StreamingBudgets(max_activations_per_frame=4, max_despawns_per_frame=512,
+                               max_entities=STREAM_ROWS)
+    state = ent.alloc_entity_state(STREAM_N, mesh.n_local("sp"), "cpu")
+    saved, jobs_mod._global = jobs_mod._global, InlineJobs(workers=1)
+    sbs = StreamedBigScene(mesh, state, WorldPartitionConfig(load_radius=1, unload_radius=2),
+                           budgets, x0=0.0, shard_width=STREAM_W, stream_rows=STREAM_ROWS)
+    out = {}
+    try:
+        for i, cam in enumerate(CAMERAS):
+            for _ in range(STREAM_FRAMES):
+                sbs.update_streaming(cam)
+            flat = {}
+
+            def walk(prefix, tree):
+                for k, v in tree.items():
+                    (walk(prefix + k + ".", v) if isinstance(v, dict)
+                     else flat.__setitem__(prefix + k, v))
+
+            walk("", numpy_tree(sbs.state))
+            out.update({f"s{i}_{k}": v for k, v in flat.items()})
+            out[f"s{i}_sectors"] = np.asarray(
+                [sorted(c for c, s in p.sectors.items() if s.state.name == "ACTIVE")
+                 for p in sbs.partitions])
+    finally:
+        sbs.shutdown()
+        jobs_mod._global.shutdown()
+        jobs_mod._global = saved
+    return out
+
+
 def run(mesh):
     """(final bodies as numpy dict, stats per step, rollout results) of the
     process's shards."""
@@ -63,6 +118,7 @@ def run(mesh):
     rl_mesh = tm.make_mesh(dp=mesh.size, sp=1, device="cpu", ranks=mesh.ranks)
     (means, rewards), rstats = env.rollout_sharded(ACTIONS, RL_LEN, rl_mesh)
     out = {f"b_{n}": v.numpy() for n, v in vars(b).items()}
+    out.update(streamed(mesh))
     # the whole fleet, assembled from every shard's part
     out.update({f"g_{n}": v.numpy() for n, v in vars(mesh.gather(b, ("sp",))).items()})
     whole = rl_mesh.gather(env.state)  # every env, from each rank's part
