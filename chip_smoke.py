@@ -13,8 +13,9 @@ configurations of scx_torch.app.rlenv.FLEETS: bench_rlenv.py's 4096 envs
 x capacity 160 through the tile kernel, and bench_rlenv_glb.py's 1024
 envs x capacity 512 of GLB buildings through the cluster kernel, both
 128x128 RGB-D with the static bake), the same physics step in stages
-(two kernels and the solve pack between them) and PPO training on the tile
-fleet -- in phases and exits non-zero at the first failure:
+(two kernels and the solve pack between them), PPO and REINFORCE training
+on the tile fleet and policy evaluation -- in phases and exits non-zero at
+the first failure:
 
   1. device: a CUDA device must be present; prints the card's name and
      power limit as nvidia-smi reports them;
@@ -154,6 +155,28 @@ fleet -- in phases and exits non-zero at the first failure:
      fleet (1024 x 64, max_pairs 128, 6 iterations, 240 steps) with its
      kernel launches per step, device busy ms and idle share over 3
      profiled steps, beside phase 4's fused rate.
+ 15. the policy entry points (run after phase 14, before phase 10):
+     (1) REINFORCE (scx_torch.rl.train_reinforce) at
+     examples/train_reinforce.py's width, 256 envs x capacity 160, 128x128
+     RGB-D, 8 cars, length 16: 1 warm and 3 timed iterations, each exactly
+     17 batched tile-raster launches (one observation before the first
+     step, one per step) and 16 middle launches, no NaN rollback or pair
+     overflow, finite loss, every parameter moved, and a rerun of the
+     first iteration from the same seed bit for bit; prints
+     `reinforce_env_steps_per_sec`; both kernels against their plain
+     versions at this fleet's shapes (phases 3 and 5's contracts); (2) one
+     iteration over a 1 x 4 local 'dp' mesh, the same launches, then one
+     single-shard iteration under torch.profiler (its CUDA launches,
+     device busy ms and idle share against (1)'s timed mean); (3)
+     drive_policy.main at its defaults (4 envs), 30 frames with --out:
+     the policy file of (1) (one raster launch per frame and one for the
+     first observation), and a state-mode policy (a display render on the
+     8 written frames only); prints `drive_policy_fps`; (4) the multi-host
+     demo's one-process form (8 local 'dp' shards, 64 envs, capacity 96,
+     64x64, 5 steps): finite, alive, no rollback, one launch of each kernel
+     a step. (3) and (4) record both kernels' operands on their own runs
+     (4 envs at 128x128 and capacity 160; 64 envs at 64x64 and capacity
+     96), and hold each kernel against its plain version there.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. A kernel's `ms` is its entry point's
@@ -161,7 +184,10 @@ time with CUDA events around 20 calls; every kernel adds phase 10's
 `kernel_ms`, the middle kernel its RL fleets' too, and the middle and
 cluster kernels their sandbox record (`sandbox`), the cluster kernel its
 editor record (`editor`, both viewport sizes), the SAT and solve kernels
-their plain-route record (`plain_route`, the F1 sandbox's step). Phase 3
+their plain-route record (`plain_route`, the F1 sandbox's step), the
+middle and tile-batched kernels a record for each path of phase 15
+(`reinforce`, `drive_policy`, `multihost_demo`: launches, the check at
+that path's shapes, `kernel_ms`). Phase 3
 prints the physics kernels' shared memory per env and the CTAs (envs) and
 warps one SM holds at the fleets' shapes (the SAT kernel's per CTA of 256
 pair slots).
@@ -203,6 +229,11 @@ F1_SEARCH_FRAMES = 120  # frames to find an F1 step with an impulse, for the ker
 # phase 14: the mixed fleet of the card-vs-CPU and rerun checks (envs, warm
 # steps, re-synced steps), and the pile fleet's profiled steps
 CONV_SYNC_ENVS, CONV_SYNC_WARM, CONV_SYNC_STEPS, CONV_PROFILED_STEPS = 16, 30, 5, 3
+# phase 15: examples/train_reinforce.py's defaults (envs, length, 8 cars;
+# capacity 160 and 128x128 RGB-D are CityRLEnv's), timed iterations after a
+# warm one, the local 'dp' shards of 15.2; drive_policy's frames
+REINFORCE_ENVS, REINFORCE_LEN, REINFORCE_TRAFFIC, REINFORCE_ITERS = 256, 16, 8, 3
+REINFORCE_DP, DRIVE_FRAMES = 4, 30
 # the staged kernels' contracts (tests/test_physics_planar.py:298-384)
 SAT_TOL, SOLVE_TOL = 5e-6, 2e-5
 # the contract of scx's fused-kernel test (tests/test_physics_planar.py):
@@ -1141,32 +1172,10 @@ def scale_out_phase(card, dev=None):
     if rstats["alive"] != float(env.state.alive.sum()) or not torch.isfinite(rw).all():
         fail(f"rollout_sharded: stats {rstats}")
     # the tile kernel vs plain on the first sharded step's own operands
-    (setup, aabb, valid, p_r), _ = rseen["bin_triangles_batched"][0]
-    binned, counts, _ = rseen["rasterize_tiles_batched"][0][0]
-    kernel = functools.partial(tr.rasterize_tiles_batched, binned, counts, p_r)
-    work_k = torch.zeros((env.n_envs, p_r.n_tiles), dtype=torch.int32, device=dev)
-    work_p = torch.zeros_like(work_k)
-    won = torch.zeros(binned.shape[:3], dtype=torch.bool, device=dev)
-    plain = lambda w=None: tr.rasterize_tiles_batched_reference(
-        binned, counts, p_r, w, None if w is None else won)
-    ref = plain(work_p)
-    err_t, differ = check_gbuffer("rollout_sharded tiles", kernel(work_k), ref)
-    if differ or not torch.equal(work_k, work_p) or not ref["covered"].any():
-        fail(f"rollout_sharded tiles: {differ} pixels or pass A's work differ from the plain "
-             "version's, or nothing covered")
-    t_ms, t_plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 2)
-    t_bound, t_by, _ = raster_bound(work_k, int(work_k.sum()), int(won.sum()),
-                                    tile_pass_a_pixels(setup, aabb, valid, p_r), p_r,
-                                    4 * counts.numel(), envs=env.n_envs)
+    t_rec, kernel = tile_batched_check("rollout_sharded", rseen, card, dp=SHARD_DP)
     alone.append(("rollout_sharded_tiles", "tile_raster_kernel", kernel))
-    print(json.dumps({"check": "rasterize_tiles_batched", "path": "rollout_sharded",
-                      "envs": env.n_envs, "dp": SHARD_DP, "max_abs_err": err_t,
-                      "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound,
-                      "bound_by": t_by, "card": card}), flush=True)
-    rec["rasterize_tiles_batched"] = {"launches": rl["raster"], "max_abs_err": err_t,
-                                      "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound,
-                                      "bound_by": t_by, "envs": env.n_envs, "dp": SHARD_DP}
-    del env, saved, want_state, rseen, kernel, binned, counts, setup, aabb, valid, ref
+    rec["rasterize_tiles_batched"] = {"launches": rl["raster"], **t_rec}
+    del env, saved, want_state, rseen, kernel
 
     # ---- 12.4 the multi-shard dry run on the card ----
     t0 = time.perf_counter()
@@ -1174,6 +1183,60 @@ def scale_out_phase(card, dev=None):
     print(json.dumps({"check": "dryrun_multichip", **dry,
                       "seconds": time.perf_counter() - t0, "card": card}), flush=True)
     return alone, rec
+
+
+def tile_batched_check(path, seen, card, **extra):
+    """rasterize_tiles_batched against its plain version on the operands
+    of its first call in `seen` (capture_many of bin_triangles_batched and
+    rasterize_tiles_batched), under phase 5's contract (bit for bit, equal
+    pass-A work); its entry ms, the plain version's and its bound. Returns
+    (the record, the kernel's call for phase 10)."""
+    import torch
+
+    from scx_torch.ops import raster as tr
+    from scx_torch.timing import cuda_ms
+
+    (setup, aabb, valid, p_r), _ = seen["bin_triangles_batched"][0]
+    binned, counts, _ = seen["rasterize_tiles_batched"][0][0]
+    envs = binned.shape[0]
+    kernel = functools.partial(tr.rasterize_tiles_batched, binned, counts, p_r)
+    work_k = torch.zeros((envs, p_r.n_tiles), dtype=torch.int32, device=binned.device)
+    work_p = torch.zeros_like(work_k)
+    won = torch.zeros(binned.shape[:3], dtype=torch.bool, device=binned.device)
+    plain = lambda w=None: tr.rasterize_tiles_batched_reference(
+        binned, counts, p_r, w, None if w is None else won)
+    ref = plain(work_p)
+    err_t, differ = check_gbuffer(f"{path} tiles", kernel(work_k), ref)
+    if differ or not torch.equal(work_k, work_p) or not ref["covered"].any():
+        fail(f"{path} tiles: {differ} pixels or pass A's work differ from the plain "
+             "version's, or nothing covered")
+    t_ms, t_plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, 2)
+    t_bound, t_by, _ = raster_bound(work_k, int(work_k.sum()), int(won.sum()),
+                                    tile_pass_a_pixels(setup, aabb, valid, p_r), p_r,
+                                    4 * counts.numel(), envs=envs)
+    rec = {"max_abs_err": err_t, "ms": t_ms, "plain_ms": t_plain_ms, "bound_ms": t_bound,
+           "bound_by": t_by, "envs": envs, **extra}
+    print(json.dumps({"check": "rasterize_tiles_batched", "path": path, **rec, "card": card}),
+          flush=True)
+    return rec, kernel
+
+
+def middle_path_check(path, ops, solver, card):
+    """planar_middle against its plain version on a path's operands
+    (check_middle's tolerances), its entry ms, the plain version's and its
+    bound. Returns (the record, the kernel's call for phase 10)."""
+    from scx_torch.physics import planar as pp
+    from scx_torch.timing import cuda_ms
+
+    err, _ = check_middle(f"{path} middle", ops, solver)
+    b_ms, b_by, *_ = middle_bound(ops, solver)
+    kernel = functools.partial(pp.middle, *ops, solver)
+    rec = {"max_abs_err": err, "ms": cuda_ms(kernel, 20),
+           "plain_ms": cuda_ms(lambda: pp.middle_reference(*ops, solver), 3),
+           "bound_ms": b_ms, "bound_by": b_by, "envs": int(ops[0].shape[0]),
+           "bodies": int(ops[0].shape[-1])}
+    print(json.dumps({"check": "planar_middle", "path": path, **rec, "card": card}), flush=True)
+    return rec, kernel
 
 
 def editor_world(root: str):
@@ -1822,6 +1885,240 @@ def conventional_phase(card, fused_rate, dev=None, cpu=None):
     return rec
 
 
+def policy_phase(card, dev=None):
+    """Phase 15: the policy entry points on the card (`dev`): REINFORCE
+    training at examples/train_reinforce.py's full width, on one shard and
+    over a 1 x REINFORCE_DP local 'dp' mesh; drive_policy's evaluation loop;
+    the multi-host demo's one-process form. Both kernels are held to their
+    plain versions at the shapes each of the three paths gives them.
+    Returns (the kernels at those shapes, for phase 10; the records for the
+    kernels line, by kernel and then by path)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_policy_") as tmp:
+        out = policy_runs(card, dev, tmp)
+    print(json.dumps({"check": "policy phase", "seconds": time.perf_counter() - t0}), flush=True)
+    return out
+
+
+def policy_runs(card, dev, tmp):
+    """policy_phase's runs, with its policy files and frames under tmp."""
+    import contextlib
+    import os
+
+    import torch
+
+    from scx_torch import profile_physics
+    from scx_torch.app.rlenv import CityRLEnv
+    from scx_torch.core.tree import tree_leaves
+    from scx_torch.ops import raster as tr
+    from scx_torch.parallel import multihost_demo
+    from scx_torch.parallel.mesh import make_mesh
+    from scx_torch.physics import planar as pp
+    from scx_torch.render import pipeline as rp
+    from scx_torch.rl import drive_policy
+    from scx_torch.rl import train_ppo
+    from scx_torch.rl import train_reinforce as trf
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    cpu_args = ["--cpu"] if dev.type == "cpu" else []
+    counts = lambda: {"raster": tr.RASTER_TILES_BATCHED_LAUNCHES,
+                      "middle": pp.MIDDLE_KERNEL_LAUNCHES}
+    per_iter = {"raster": REINFORCE_LEN + 1, "middle": REINFORCE_LEN}
+
+    # ---- 15.1 REINFORCE at full width, one shard ----
+    t0 = time.perf_counter()
+    env = CityRLEnv(n_envs=REINFORCE_ENVS, n_traffic=REINFORCE_TRAFFIC, device=dev)
+    build_s = time.perf_counter() - t0
+    if env.raster.use_clusters:
+        fail("the REINFORCE fleet does not take the tile path")
+
+    def train(iters, mesh=None, keep_first=False, profiled=False):
+        """iters train steps from seed 0 on the env's start state; per
+        iteration its seconds and launches; the state after the first;
+        with `profiled` the last one under torch.profiler, whose CUDA
+        kernels are added to its record."""
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = trf.policy_init(gen, env.raster.width)
+        p0 = {k: v.detach().clone() for k, v in params.items()}
+        step, place = trf.make_reinforce_train_step(
+            env, trf.policy_apply, REINFORCE_LEN,
+            lambda ps: torch.optim.Adam(ps, lr=3e-4, eps=1e-8), mesh)
+        batch, cache, opt_state = place(env.state), place(env.cache), None
+        env.take_rollout_info()
+        runs, first = [], None
+        for it in range(iters):
+            torch.cuda.synchronize()
+            reset_counts()
+            traced = profiled and it == iters - 1
+            prof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                       torch.profiler.ProfilerActivity.CUDA])
+                    if traced else contextlib.nullcontext())
+            with prof:
+                t0 = time.perf_counter()
+                params, opt_state, batch, cache, loss, ret = step(params, opt_state, batch,
+                                                                  cache, gen)
+                loss_h, ret_h = float(loss), float(ret)  # the host reads end the step
+                runs.append({"seconds": time.perf_counter() - t0, "launches": counts(),
+                             "loss": loss_h, "mean_return": ret_h})
+            if traced:
+                dev_us = [ev.time_range.elapsed_us() for ev in prof.events()
+                          if ev.device_type == torch.autograd.DeviceType.CUDA]
+                runs[-1].update(device_launches=len(dev_us), device_busy_ms=sum(dev_us) / 1e3)
+            if keep_first and it == 0:
+                first = [x.detach().clone() for x in (loss, ret, *params.values(),
+                                                      *tree_leaves(batch))]
+        return params, p0, batch, cache, runs, env.take_rollout_info(), first
+
+    params, p0, batch, cache, runs, info, first = train(1 + REINFORCE_ITERS, keep_first=True)
+    timed = runs[1:]
+    secs = sum(r["seconds"] for r in timed)
+    moved = [k for k in params if (params[k].detach() - p0[k]).abs().max().item() > 0]
+    print(json.dumps({
+        "metric": "reinforce_env_steps_per_sec", "path": "cuda-kernel", "config": "tiles",
+        "envs": env.n_envs, "capacity": env.capacity, "obs": env.raster.width,
+        "traffic": REINFORCE_TRAFFIC, "length": REINFORCE_LEN, "shards": 1,
+        "value": env.n_envs * REINFORCE_LEN * REINFORCE_ITERS / secs,
+        "seconds": [r["seconds"] for r in timed], "warm_seconds": runs[0]["seconds"],
+        "loss": [r["loss"] for r in runs], "mean_return": [r["mean_return"] for r in runs],
+        "launches_per_iteration": [r["launches"] for r in runs], "rollout_info": info,
+        "moved": moved, "build_seconds": build_s, "card": card}), flush=True)
+    if any(r["launches"] != per_iter for r in runs):
+        fail(f"reinforce: launches per iteration {[r['launches'] for r in runs]}, "
+             f"not {per_iter}")
+    if info != {"nan_rollbacks": 0, "pair_overflow": 0}:
+        fail(f"reinforce: {info}")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["mean_return"]) for r in runs):
+        fail("reinforce: a loss or mean return is not finite")
+    if sorted(moved) != sorted(params) or not all(torch.isfinite(v).all() for v in
+                                                  params.values()):
+        fail(f"reinforce: parameters moved {moved}, or not finite")
+    # the same first iteration again from the same seed: bit for bit
+    *_, again = train(1, keep_first=True)
+    unequal = [i for i, (a, b) in enumerate(zip(first, again)) if not torch.equal(a, b)]
+    print(json.dumps({"check": "reinforce rerun", "tensors": len(first),
+                      "bit_unequal": unequal}), flush=True)
+    if unequal:
+        fail(f"reinforce: a rerun from the same seed differs in tensors {unequal[:8]}")
+    trf.save_policy(os.path.join(tmp, "reinforce.npz"), params)
+
+    # the kernels at this fleet's shapes, on the trained-on state, vs plain
+    env.state, env.cache = batch, cache
+    act = torch.zeros((env.n_envs, 4), device=dev)
+    _, seen = capture_many(((rp, "bin_triangles_batched"), (tr, "rasterize_tiles_batched")),
+                           lambda: env.observe())
+    t_rec, t_kernel = tile_batched_check("reinforce", seen, card)
+    m_rec, m_kernel = middle_path_check(
+        "reinforce", profile_physics.rl_middle_operands(env, act), env.sim.solver, card)
+    alone = [("reinforce_tiles", "tile_raster_kernel", t_kernel),
+             ("reinforce_middle", "planar_middle_kernel", m_kernel)]
+    total = {k: sum(r["launches"][k] for r in timed) for k in per_iter}
+    t_rec.update(launches=total["raster"], iterations=REINFORCE_ITERS)
+    m_rec.update(launches=total["middle"], iterations=REINFORCE_ITERS)
+    del seen, batch, cache
+
+    # ---- 15.2 the same step over a 1 x REINFORCE_DP local 'dp' mesh ----
+    env.reset()
+    mesh = make_mesh(dp=REINFORCE_DP, device=dev)
+    _, _, _, _, runs, info, _ = train(1, mesh)
+    print(json.dumps({
+        "metric": "reinforce_env_steps_per_sec", "path": "cuda-kernel", "config": "tiles",
+        "envs": env.n_envs, "length": REINFORCE_LEN, "shards": REINFORCE_DP,
+        "value": env.n_envs * REINFORCE_LEN / runs[0]["seconds"], "first_iteration": True,
+        "seconds": runs[0]["seconds"], "loss": runs[0]["loss"],
+        "launches": runs[0]["launches"], "rollout_info": info, "card": card}), flush=True)
+    if runs[0]["launches"] != per_iter or info != {"nan_rollbacks": 0, "pair_overflow": 0} \
+            or not math.isfinite(runs[0]["loss"]):
+        fail(f"reinforce over {REINFORCE_DP} shards: {runs[0]}, {info}")
+    t_rec["dp_launches"] = m_rec["dp_launches"] = {"dp": REINFORCE_DP, **runs[0]["launches"]}
+
+    # one more single-shard iteration after a warm one, profiled: kernel
+    # launches, device busy ms and idle share against 15.1's timed mean
+    env.reset()
+    *_, runs, _, _ = train(2, profiled=True)
+    wall_ms = secs * 1e3 / REINFORCE_ITERS
+    traced = {"device_launches": runs[-1]["device_launches"],
+              "device_busy_ms": runs[-1]["device_busy_ms"],
+              "profiled_wall_ms": runs[-1]["seconds"] * 1e3, "timed_wall_ms": wall_ms,
+              "device_idle_share": max(0.0, 1.0 - runs[-1]["device_busy_ms"] / wall_ms)}
+    print(json.dumps({"check": "reinforce profiled iteration", **traced, "card": card}),
+          flush=True)
+    if not traced["device_launches"] or runs[-1]["launches"] != per_iter:
+        fail(f"reinforce profiled iteration: {runs[-1]}")
+    del env
+
+    def captured(run):
+        """run() with the tile path's binning, its raster and the middle's
+        operands recorded (capture_many); no launch is added."""
+        return capture_many(((rp, "bin_triangles_batched"), (tr, "rasterize_tiles_batched"),
+                             (pp, "middle_operands")), run)
+
+    def path_checks(path, seen, launches):
+        """Both kernels against their plain versions at the shapes `path`
+        gave them: the tiles on its first observation, the middle on its
+        step with the most pair-valid slots. Records with the path's
+        launches; the kernels join phase 10."""
+        t, t_kernel = tile_batched_check(path, seen, card)
+        (_, solver, *_), (_, ops, _) = max(seen.pop("middle_operands"),
+                                           key=lambda call: int(call[1][1][3].sum()))
+        m, m_kernel = middle_path_check(path, ops, solver, card)
+        t["launches"], m["launches"] = launches["raster"], launches["middle"]
+        alone.extend(((f"{path}_tiles", "tile_raster_kernel", t_kernel),
+                      (f"{path}_middle", "planar_middle_kernel", m_kernel)))
+        return t, m
+
+    # ---- 15.3 drive_policy: the trained file, and a state-mode policy ----
+    drives, seen = {}, None
+    state_file = os.path.join(tmp, "state.npz")
+    train_ppo.save_policy(state_file, train_ppo.state_net_init(
+        torch.Generator(device=dev).manual_seed(1), CityRLEnv.STATE_OBS_DIM))
+    for mode, extra in (("rgbd", ["--policy", os.path.join(tmp, "reinforce.npz")]),
+                        ("state", ["--obs-mode", "state", "--policy", state_file])):
+        out = os.path.join(tmp, f"frames_{mode}")
+        reset_counts()
+        run = lambda: drive_policy.main(cpu_args + extra + ["--frames", str(DRIVE_FRAMES),
+                                                            "--out", out])
+        if mode == "rgbd":
+            got, seen = captured(run)
+        else:
+            got = run()
+        drives[mode] = {**{k: got[k] for k in ("fps", "seconds", "mean_return")},
+                        "files": len(os.listdir(out)), "launches": counts()}
+    shown = -(-DRIVE_FRAMES // 4)  # --every 4
+    want = {"rgbd": {"raster": DRIVE_FRAMES + 1, "middle": DRIVE_FRAMES},
+            "state": {"raster": shown, "middle": DRIVE_FRAMES}}
+    print(json.dumps({"metric": "drive_policy_fps", "path": "cuda-kernel", "config": "tiles",
+                      "envs": 4, "frames": DRIVE_FRAMES, "value": drives["rgbd"]["fps"],
+                      "state_mode_value": drives["state"]["fps"], "runs": drives,
+                      "card": card}), flush=True)
+    for mode, d in drives.items():
+        if d["files"] != shown or d["launches"] != want[mode] \
+                or not math.isfinite(d["mean_return"]):
+            fail(f"drive_policy ({mode}): {d}, launches not {want[mode]} or not {shown} files")
+    records = {"rasterize_tiles_batched": {"reinforce": t_rec},
+               "planar_middle": {"reinforce": m_rec}}
+    for kname, rec in zip(records, path_checks("drive_policy", seen,
+                                               drives["rgbd"]["launches"])):
+        records[kname]["drive_policy"] = rec
+    del seen
+
+    # ---- 15.4 the multi-host demo's one-process form ----
+    reset_counts()
+    t0 = time.perf_counter()
+    stats, seen = captured(lambda: multihost_demo.main(cpu_args))
+    demo = {"seconds": time.perf_counter() - t0, "stats": stats, "launches": counts()}
+    print(json.dumps({"check": "multihost_demo", "dp": multihost_demo.LOCAL_DP, **demo,
+                      "card": card}), flush=True)
+    steps = multihost_demo.LENGTH
+    if (not stats["finite"] or stats["alive"] <= 0 or stats["nan_rollbacks"]
+            or demo["launches"] != {"raster": steps, "middle": steps}):
+        fail(f"multihost_demo: {demo}")
+    for kname, rec in zip(records, path_checks("multihost_demo", seen, demo["launches"])):
+        records[kname]["multihost_demo"] = rec
+    return alone, records
+
+
 def main():
     import torch
 
@@ -2347,6 +2644,10 @@ def main():
     # ---- 14. scx's conventional step (before phase 10, for the same reason)
     conventional_phase(card, fused_rate)
 
+    # ---- 15. the policy entry points (before phase 10, for the same reason)
+    policy_alone, policy = policy_phase(card)
+    alone += policy_alone
+
     # ---- 10. each kernel alone: phases 3, 4b, 5 and 7's inputs, RL fleets --
     kernel_alone = {}
     for kname, cuda_name, kernel in alone:
@@ -2367,6 +2668,9 @@ def main():
         rec["kernel_ms"] = kernel_alone[f"editor_clusters_{size}"]
     plain_route["planar_sat"]["kernel_ms"] = kernel_alone["f1_sat"]
     plain_route["planar_solve"]["kernel_ms"] = kernel_alone["f1_solve_global"]
+    for kname, short in (("rasterize_tiles_batched", "tiles"), ("planar_middle", "middle")):
+        for path, rec in policy[kname].items():
+            rec["kernel_ms"] = kernel_alone[f"{path}_{short}"]
     rl_alone = {}
     for name, (rops, solver) in rl_middle.items():
         k_ms = kernel_ms(functools.partial(pp.middle, *rops, solver), 20,
@@ -2388,7 +2692,7 @@ def main():
          "max_abs_err": err_main, "ms": middle_ms, "kernel_ms": kernel_alone["planar_middle"],
          "plain_ms": plain_ms, "bound_ms": mid_bound, "bound_by": mid_by, "library_ms": None,
          "rl_fleets": rl_alone, "sandbox": sandbox["planar_middle"],
-         "spatial_strips": scale_out["planar_middle"]},
+         "spatial_strips": scale_out["planar_middle"], **policy["planar_middle"]},
         {"name": "planar_sat", "route": "cuda",
          "source": "scx_torch/physics/csrc/planar_staged.cu",
          "replaces": "scx/physics/planar.py:818", "launches": sat_launches,
@@ -2423,7 +2727,8 @@ def main():
         {"name": "rasterize_tiles_batched", "route": "cuda",
          "source": "scx_torch/ops/csrc/raster.cu", "replaces": "scx/ops/raster.py:263",
          **batched["rasterize_tiles_batched"], "library_ms": None,
-         "rollout_sharded": scale_out["rasterize_tiles_batched"]},
+         "rollout_sharded": scale_out["rasterize_tiles_batched"],
+         **policy["rasterize_tiles_batched"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,8 +1,9 @@
 """Scale-out of the port (scx.parallel): one mesh of 'dp' x 'sp' shards,
 local to a process or one per torch.distributed rank (`mesh`), spatial
 strips of one physics scene (`spatial`), the big scene with its row
-strips (`bigscene`), streaming over strips (`streamed_bigscene`) and the
-multi-shard dry run (`dryrun`)."""
+strips (`bigscene`), streaming over strips (`streamed_bigscene`), the
+multi-shard dry run (`dryrun`) and the multi-process rollout demo
+(`multihost_demo`)."""
 
 from scx_torch.parallel.mesh import (
     all_gather_stats,

@@ -30,6 +30,8 @@ is the whole (global) tensor; with rank shards it is the rank's shard, and
 from __future__ import annotations
 
 import math
+import os
+
 import torch
 
 from scx_torch import resolve_device
@@ -201,6 +203,24 @@ def make_mesh(dp: int | None = None, sp: int = 1, device=None, ranks: bool = Fal
     if dp < 1 or sp < 1:
         raise ValueError(f"mesh {dp}x{sp}")
     return Mesh(dp, sp, device, ranks)
+
+
+def process_group_from_env(device) -> bool:
+    """Initializes the torch.distributed process group from torchrun's
+    environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT; LOCAL_RANK
+    picks the card): NCCL on cards, gloo on the CPU. Does nothing where
+    WORLD_SIZE is unset or a group is already initialized. Returns whether
+    it initialized the group (the caller then destroys it)."""
+    import torch.distributed as dist
+
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return True
 
 
 def shard_env_batch(batch, mesh: Mesh):

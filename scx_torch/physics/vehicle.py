@@ -123,17 +123,20 @@ class WheelConfig:
 _FRONT = (True, True, False, False)
 
 
-def default_wheel_configs(half_extents, params: VehicleParams,
+def default_wheel_configs(half_extents, params: VehicleParams, traffic: bool = False,
                           com_offset=(0.0, 0.0, 0.0)) -> np.ndarray:
-    """Wheel hardpoints [4, 3] f32 of a player car from collider extents
+    """Wheel hardpoints [4, 3] f32 from collider extents
     (sc_vehicle.cpp:266-304), COM-relative with the reference's min
-    clamps, computed in f32 as scx computes them (traffic cars get theirs
-    from scx_torch.traffic.lod)."""
+    clamps, computed in f32 as scx computes them. traffic=True lowers the
+    hardpoints by the suspension's rest length, as for a traffic car (the
+    fleets' traffic cars get theirs from scx_torch.traffic.lod)."""
     f32 = np.float32
     h = np.asarray(half_extents, f32)
     hx, hy, hz = np.maximum(f32(0.2), h[0]), np.maximum(f32(0.2), h[1]), np.maximum(f32(0.4), h[2])
     wheel_x = hx - f32(params.wheel_width * 0.5)
     wheel_y = -hy + f32(params.wheel_radius)
+    if traffic:
+        wheel_y = wheel_y - f32(params.susp_rest)
     front_z = hz - f32(params.wheel_radius * 0.5)
     rear_z = -hz + f32(params.wheel_radius * 0.5)
     conn = np.asarray([[-wheel_x, wheel_y, front_z], [wheel_x, wheel_y, front_z],

@@ -27,6 +27,10 @@ class MeshPool:
     mesh_bounds_max: torch.Tensor  # [M, 3]
     tri_vert_rows: torch.Tensor    # [T, 24] f32: each triangle's 3 vertex rows
 
+    @property
+    def num_meshes(self) -> int:
+        return self.mesh_first_tri.shape[0]
+
 
 def builtin_cube():
     """Unit cube (half extent 0.5) with per-face colors, 24 verts / 12 tris."""

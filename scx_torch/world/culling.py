@@ -80,11 +80,14 @@ def world_matrices(state: EntityState) -> torch.Tensor:
     return assemble_mat4(world_matrix_cols(state))
 
 
-def cull_entities(state: EntityState, view_proj):
+def cull_entities(state: EntityState, view_proj, freeze_planes=None):
     """Visibility [E, C] of each entity's world bounding sphere against the
     frustum of view_proj [E, 4, 4] (Gribb-Hartmann planes), and the world
-    matrices [E, C, 4, 4]."""
-    planes = m3.frustum_from_view_proj(view_proj)  # [E, 6, 4]
+    matrices [E, C, 4, 4]. freeze_planes ([6, 4] or [E, 6, 4]) replaces
+    that frustum: the debug frozen-culling frustum
+    (sc_world_partition.cpp:1227-1233)."""
+    planes = (m3.frustum_from_view_proj(view_proj) if freeze_planes is None
+              else freeze_planes)  # [(E,) 6, 4]
     cols = world_matrix_cols(state)
     (m00, m01, m02, m03, m10, m11, m12, m13, m20, m21, m22, m23) = cols
 

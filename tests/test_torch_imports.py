@@ -34,7 +34,8 @@ def test_port_imports_neither_jax_nor_scx():
                 "scx_torch.app.debugui", "scx_torch.tools", "scx_torch.tools.asset_db",
                 "scx_torch.tools.editor", "scx_torch.tools.editor_app",
                 "scx_torch.physics.boxbox", "scx_torch.physics.warmstart",
-                "scx_torch.profile_spatial"):
+                "scx_torch.profile_spatial", "scx_torch.rl.train_reinforce",
+                "scx_torch.rl.drive_policy", "scx_torch.parallel.multihost_demo"):
         assert new in mods, new
     out = subprocess.run([sys.executable, "-c", _PROBE, *mods, "chip_smoke"], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=True)

@@ -202,3 +202,60 @@ def test_set_vehicle_tuning_matches_scx():
                   "max_steer", "steer_response", "susp_rest", "susp_stiff", "damp_comp",
                   "damp_relax", "wheel_radius", "friction_slip", "roll_influence"):
             assert torch.equal(getattr(ts.vehicle, f), getattr(want.vehicle, f)), f
+
+
+def test_cull_entities_frozen_frustum_matches_scx():
+    """cull_entities with freeze_planes (scx's debug frozen-culling
+    frustum, scx/world/culling.py:97-104): the visibility against planes
+    frozen from another camera equals scx's, and differs from the live
+    frustum's; the world matrices are the state's either way."""
+    import jax
+
+    from scx.state import entity as jst
+    from scx.world import culling as jcull
+    from scx_torch import convert
+    from scx_torch.world import culling as tcull
+
+    rng = np.random.default_rng(12)
+    n = 48
+    js = jst.spawn_entities(
+        jst.alloc_entity_state(64), jnp.arange(n), jnp.ones(n, bool),
+        **{"transform.pos": rng.uniform(-40, 40, (n, 3)).astype(np.float32),
+           "transform.scale": rng.uniform(0.5, 3, (n, 3)).astype(np.float32),
+           "render.mesh_id": np.zeros(n, np.int32)})
+    ts = convert.entity_state(jax.tree.map(lambda x: np.asarray(x)[None], js), "cpu")
+
+    def view_proj(eye, target):
+        view = jm3.mat4_look_at_rh(jnp.asarray(eye), jnp.asarray(target),
+                                   jnp.asarray([0.0, 1.0, 0.0]))
+        return np.asarray(jm3.mat4_perspective_rh_zo(np.radians(60), 1.5, 0.1, 100.0) @ view)
+
+    live, frozen = view_proj([0.0, 5.0, 0.0], [30.0, 0.0, 0.0]), view_proj([0.0, 5.0, 0.0],
+                                                                           [-30.0, 0.0, 0.0])
+    planes = np.asarray(jm3.frustum_from_view_proj(frozen))
+    j_vis, j_mats = jcull.cull_entities(js, live, freeze_planes=planes)
+    t_vis, t_mats = tcull.cull_entities(ts, T(live)[None], freeze_planes=T(planes))
+    _eq(t_vis[0], j_vis)
+    _close(t_mats[0], j_mats)
+    t_live, _ = tcull.cull_entities(ts, T(live)[None])
+    _eq(t_live[0], jcull.cull_entities(js, live)[0])
+    assert t_vis.any() and not torch.equal(t_vis, t_live)
+
+
+@pytest.mark.parametrize("traffic", [False, True])
+def test_default_wheel_configs_match_scx(traffic):
+    """Wheel hardpoints of a player car and, with traffic=True, of a
+    traffic car lowered by the suspension's rest length
+    (scx/physics/vehicle.py:137-162), with a COM offset; bit-equal."""
+    from scx.physics import vehicle as jvh
+    from scx_torch.physics import vehicle as tvh
+
+    half, com = (0.9, 0.35, 2.1), (0.0, -0.2, 0.1)
+    want = jvh.default_wheel_configs(jnp.asarray(half), jvh.VehicleParams(), traffic=traffic,
+                                     com_offset=com)
+    got = tvh.default_wheel_configs(half, tvh.VehicleParams(), traffic=traffic, com_offset=com)
+    _eq(got, want.conn)
+    lift = tvh.VehicleParams().susp_rest if traffic else 0.0
+    np.testing.assert_allclose(got[:, 1], tvh.default_wheel_configs(half, tvh.VehicleParams(),
+                                                                    com_offset=com)[:, 1] - lift,
+                               rtol=0, atol=1e-6)

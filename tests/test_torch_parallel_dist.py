@@ -5,8 +5,10 @@ input (tests/torch_dist_worker.py): 30 steps of the spatial strip step
 (two strips, a box that crosses), the streamed big scene's two strips
 (each rank streams its own strip's sectors and writes only its [1, N]
 shard; every column, the uids included, and the active sectors after
-settling around two cameras) and a 3-step rollout_sharded of a 4-env RL
-fleet over 'dp'. The halo and migration hops are send/recv pairs there
+settling around two cameras), a 3-step rollout_sharded of a 4-env RL
+fleet over 'dp', one REINFORCE train step of that fleet over 'dp' (the
+parameters, loss and mean return every rank holds, and each rank's envs)
+and the multi-host demo's rollout (8 envs a shard; its stats). The halo and migration hops are send/recv pairs there
 and tensor shifts here; the sums are gathered and added in shard order in
 both."""
 
@@ -61,8 +63,11 @@ def test_gloo_ranks_equal_local_shards(tmp_path):
         np.testing.assert_array_equal(got["means"], local["means"][:, envs])
         np.testing.assert_array_equal(got["rewards"], local["rewards"][:, envs])
         np.testing.assert_array_equal(got["pos"], local["pos"][envs])
-        for k in (k for k in local if k.startswith("rl_")):
+        for k in (k for k in local if k.startswith(("rl_", "pi_", "demo_")) and k != "pi_pos"):
             np.testing.assert_array_equal(got[k], local[k], err_msg=k)
+        np.testing.assert_array_equal(got["pi_pos"], local["pi_pos"][envs])
+    assert local["pi_loss"] != 0 and local["demo_finite"] and local["demo_alive"] > 0
+    assert local["demo_nan_rollbacks"] == 0
 
 
 def test_local_mesh_collectives():

@@ -20,6 +20,7 @@ from scx.render import pipeline as jpipe
 from scx.render import staticbake as jsb
 from scx_torch import convert, resolve_device
 from scx_torch.core import math3d as tm3
+from scx_torch.parallel import multihost_demo
 from scx_torch.physics import fleet
 from scx_torch.physics import planar as tpl
 from scx_torch.render import camera as tcam
@@ -27,6 +28,7 @@ from scx_torch.render import city
 from scx_torch.render import mesh as tmesh
 from scx_torch.render import pipeline as tp
 from scx_torch.render import staticbake as tsb
+from scx_torch.rl import drive_policy, train_reinforce
 
 from torch_render_scenes import (  # noqa: F401 (one_torch_thread: autouse)
     EYE, TARGET, UP, params, scene_arrays, one_torch_thread)
@@ -128,6 +130,19 @@ def test_static_bake_and_setup_match_scx(morton):
                   jsb.setup_static_from_bake(want_b, jvp, jp))
 
 
+def test_mesh_pool_num_meshes_matches_scx():
+    """MeshPool.num_meshes (scx/render/mesh.py:39): the built-in pool's
+    and the GLB building pool's mesh counts."""
+    from scx.assets import glbgen as jglb
+    from scx_torch.assets import glbgen as tglb
+
+    assert tmesh.build_mesh_pool(device="cpu").num_meshes == rd.build_mesh_pool().num_meshes
+    jmeshes, _ = jglb.building_pool_meshes(3)
+    tmeshes, _ = tglb.building_pool_meshes(3)
+    want = rd.build_mesh_pool(jmeshes).num_meshes
+    assert tmesh.build_mesh_pool(tmeshes, device="cpu").num_meshes == want > 2
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     """No device means the card: without one they raise, never fall back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -140,6 +155,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
         lambda: city.build_city_frame(grid=1, subdiv=1, ground=1),
         lambda: convert.draw_list(jax.tree.map(np.asarray, _both_scenes(1)[0])),
         lambda: convert.mesh_pool(jax.tree.map(np.asarray, rd.build_mesh_pool())),
+        lambda: train_reinforce.main([]),
+        lambda: drive_policy.main([]),
+        lambda: multihost_demo.main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,7 +1,7 @@
 """One rank of tests/test_torch_parallel_dist.py (not a test file): runs the
-port's spatial strip step, the streamed big scene's strips and the
-sharded rollout as rank shards of a gloo group and saves its part of the
-results.
+port's spatial strip step, the streamed big scene's strips, the sharded
+rollout, one REINFORCE train step and the multi-host demo's rollout as
+rank shards of a gloo group and saves its part of the results.
 
     python tests/torch_dist_worker.py RANK WORLD PORT OUT_DIR
 """
@@ -9,6 +9,7 @@ results.
 import os
 import sys
 from concurrent.futures import Future
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -16,16 +17,18 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from scx_torch.app.rlenv import CityRLEnv  # noqa: E402
-from scx_torch.convert import numpy_tree  # noqa: E402
+from scx_torch.convert import numpy_tree, policy_arrays  # noqa: E402
 from scx_torch.core import jobs as jobs_mod  # noqa: E402
 from scx_torch.core.config import StreamingBudgets, WorldPartitionConfig  # noqa: E402
 from scx_torch.core.jobs import JobSystem  # noqa: E402
 from scx_torch.parallel.streamed_bigscene import StreamedBigScene  # noqa: E402
 from scx_torch.state import entity as ent  # noqa: E402
 from scx_torch.parallel import mesh as tm  # noqa: E402
+from scx_torch.parallel import multihost_demo  # noqa: E402
 from scx_torch.parallel import spatial as tsp  # noqa: E402
 from scx_torch.physics.rigid import BODY_DYNAMIC, BODY_STATIC, make_bodies  # noqa: E402
 from scx_torch.physics.solver import SolverParams  # noqa: E402
+from scx_torch.rl import train_reinforce as trf  # noqa: E402
 
 S, WIDTH, N_LOCAL, STEPS = 2, 16.0, 16, 30
 SPATIAL = dict(x0=0.0, shard_width=WIDTH, halo=3.0, halo_cap=8, mig_cap=8)
@@ -105,6 +108,25 @@ def streamed(mesh):
     return out
 
 
+def reinforce(mesh):
+    """One REINFORCE train step of the small fleet over the 'dp' shards of
+    `mesh`, its player seeded at a speed of its own in each env: the
+    updated parameters (scx's layout), loss, mean return and the process's
+    envs' positions."""
+    env = CityRLEnv(device="cpu", **RL)
+    vel = env.state.body.vel.clone()
+    vel[:, env.player, 2] = torch.linspace(2.0, 8.0, RL["n_envs"])
+    env.state = replace(env.state, body=replace(env.state.body, vel=vel))
+    gen = torch.Generator().manual_seed(0)
+    params = trf.policy_init(gen, RL["obs_size"])
+    step, place = trf.make_reinforce_train_step(
+        env, trf.policy_apply, RL_LEN, lambda ps: torch.optim.Adam(ps, lr=1e-3, eps=1e-8), mesh)
+    params, _, batch, _, loss, ret = step(params, None, place(env.state), place(env.cache), gen)
+    out = {f"pi_{k}": v for k, v in policy_arrays(params).items()}
+    out.update(pi_loss=loss.numpy(), pi_return=ret.numpy(), pi_pos=batch.transform.pos.numpy())
+    return out
+
+
 def run(mesh):
     """(final bodies as numpy dict, stats per step, rollout results) of the
     process's shards."""
@@ -126,6 +148,8 @@ def run(mesh):
     out.update(stats=np.asarray(stats), means=means.numpy(), rewards=rewards.numpy(),
                pos=env.state.transform.pos.numpy(), alive=alive.numpy(),
                **{f"rl_{k}": v.numpy() for k, v in rstats.items()})
+    out.update(reinforce(rl_mesh))
+    out.update({f"demo_{k}": np.asarray(v) for k, v in multihost_demo.run(rl_mesh).items()})
     return out
 
 
