@@ -74,7 +74,3 @@ def snapshot_top_scopes(top: int = TOP_SCOPES) -> list[ScopeSample]:
             _scopes[n] = 0
     items.sort(key=lambda kv: kv[1], reverse=True)
     return [ScopeSample(n, ns / 1e6) for n, ns in items[:top]]
-
-
-def now_ms() -> float:
-    return time.perf_counter_ns() / 1e6

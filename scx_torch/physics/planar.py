@@ -45,6 +45,7 @@ from scx_torch.physics.rigid import (
 )
 from scx_torch.physics.solver import SolverParams
 from scx_torch.physics.warmstart import _pair_keys, key_match
+from scx_torch.telemetry import trace
 
 _FACE_BIAS_REL = 0.95
 _EPS = 1e-7
@@ -176,6 +177,7 @@ def _shape_centers(b: PlanarBodies) -> V3:
     return b.pos + pl.qrot(b.quat, b.shape_offset)
 
 
+@trace.span("physics.broadphase")
 def planar_broadphase(b: PlanarBodies, max_pairs: int, margin: float = 0.02):
     """Returns (ia, ib [E, P] i32, valid [E, P] bool, n_candidates [E] i32):
     the first max_pairs overlapping pairs i < j in flat (i, j) order, as
@@ -645,6 +647,7 @@ def empty_planar_cache(envs: int, max_pairs: int, device=None) -> PlanarCache:
     )
 
 
+@trace.span("physics.key_match")
 def _warm_prev(cache: PlanarCache, ka, kb, pair_valid):
     """The key-matched previous pair record [E, 4K, P]: cand+1 rows, then
     lam_n / lam_1 / lam_2 rows; zeros where a pair has no match."""
@@ -1053,6 +1056,7 @@ def step_route(n: int, p: int, device, smem_limit=None) -> str:
     return _route(n, p, int(smem_limit), on_card)
 
 
+@trace.span("physics.middle")
 def middle(rows, ia, ib, pvf, prev, vw0, params: SolverParams):
     """The fused middle of the step over a fleet (see middle_reference for
     shapes). CPU tensors take middle_reference; CUDA tensors launch the
@@ -1120,6 +1124,7 @@ def middle_operands(b: PlanarBodies, params: SolverParams,
     return b, operands, (ka, kb, pair_valid, n_cand)
 
 
+@trace.span("physics.finish")
 def _finish_step(b: PlanarBodies, params: SolverParams, vel: V3, omega: V3, cnt,
                  pair_valid, n_cand, c_valid, trig_ov):
     """The back of a step: sleeping, position integration and the per-env
@@ -1147,6 +1152,7 @@ def _finish_step(b: PlanarBodies, params: SolverParams, vel: V3, omega: V3, cnt,
 STEP_ROUTES = {"fused": 0, "staged": 0, "plain": 0}  # steps per route, never reset here
 
 
+@trace.span("physics.step")
 def step_planar_cached(b: PlanarBodies, params: SolverParams,
                        cache: PlanarCache, key_id=None, *, middle_fn=middle,
                        smem_limit=None):
@@ -1173,7 +1179,7 @@ def step_planar_cached(b: PlanarBodies, params: SolverParams,
                 "solve_fn to choose its kernels")
         STEP_ROUTES[route] += 1
         solve_fn = solve_fleet if route == "staged" else solve_fleet_global
-        return step_planar_staged(b, params, cache, key_id, solve_fn=solve_fn)
+        return _step_staged(b, params, cache, key_id, solve_fn=solve_fn)
     STEP_ROUTES[route] += 1
     b, operands, (ka, kb, pair_valid, n_cand) = middle_operands(
         b, params, cache, key_id
@@ -1182,14 +1188,15 @@ def step_planar_cached(b: PlanarBodies, params: SolverParams,
     vel = V3(vwc[..., 0, :], vwc[..., 1, :], vwc[..., 2, :])
     omega = V3(vwc[..., 3, :], vwc[..., 4, :], vwc[..., 5, :])
     c_valid = validf > 0.5
-    cache = PlanarCache(
-        key_a=ka,
-        key_b=kb,
-        cand=torch.where(c_valid, candf.to(torch.int32), -1),
-        lam_n=torch.where(c_valid, lam[..., :_K, :], 0.0),
-        lam_1=torch.where(c_valid, lam[..., _K:2 * _K, :], 0.0),
-        lam_2=torch.where(c_valid, lam[..., 2 * _K:, :], 0.0),
-    )
+    with trace.annotate("physics.store"):
+        cache = PlanarCache(
+            key_a=ka,
+            key_b=kb,
+            cand=torch.where(c_valid, candf.to(torch.int32), -1),
+            lam_n=torch.where(c_valid, lam[..., :_K, :], 0.0),
+            lam_1=torch.where(c_valid, lam[..., _K:2 * _K, :], 0.0),
+            lam_2=torch.where(c_valid, lam[..., 2 * _K:, :], 0.0),
+        )
     b, stats = _finish_step(b, params, vel, omega, vwc[..., 6, :], pair_valid,
                             n_cand, c_valid, trigf > 0.5)
     return b, cache, stats
@@ -1410,6 +1417,7 @@ def _sat_inputs(b: PlanarBodies, ia, ib, pair_valid):
             pair_valid.to(torch.float32))
 
 
+@trace.span("physics.contacts")
 def planar_contacts(b: PlanarBodies, ia, ib, pair_valid, kinds=_ALL_KINDS, *,
                     sat_fn=sat_fleet) -> PlanarContacts:
     """The contacts of the broadphase pairs, triggers split off. sat_fn is
@@ -1439,6 +1447,7 @@ def planar_gather_warm(cache: PlanarCache, ia, ib, pair_valid, cand, key_id=None
     return _reassociate(_warm_prev(cache, ka, kb, pair_valid), cand)
 
 
+@trace.span("physics.store")
 def planar_store(cache: PlanarCache, ia, ib, pair_valid, con: PlanarContacts,
                  ln, l1, l2, key_id=None) -> PlanarCache:
     ka, kb = _pair_keys(ia, ib, pair_valid, key_id)
@@ -1454,6 +1463,7 @@ def planar_store(cache: PlanarCache, ia, ib, pair_valid, con: PlanarContacts,
     )
 
 
+@trace.span("physics.solve_pack")
 def solve_pack(b: PlanarBodies, con: PlanarContacts, params: SolverParams,
                ia, ib, lam0=None):
     """The operands of the fleet solve: (jac [E, 168, P], vw0 [E, 6, N] after
@@ -1497,18 +1507,26 @@ def planar_solve(b: PlanarBodies, con: PlanarContacts, params: SolverParams,
     solve_fn is the fleet solve to run (`solve_reference`: the plain
     version)."""
     jac, vw0, cnt = solve_pack(b, con, params, ia, ib, lam0)
-    vw, lam = solve_fn(jac, ia, ib, vw0, params.iterations)
+    with trace.annotate("physics.solve"):
+        vw, lam = solve_fn(jac, ia, ib, vw0, params.iterations)
     vel = V3(vw[..., 0, :], vw[..., 1, :], vw[..., 2, :])
     omega = V3(vw[..., 3, :], vw[..., 4, :], vw[..., 5, :])
     return vel, omega, (lam[..., :_K, :], lam[..., _K:2 * _K, :], lam[..., 2 * _K:, :]), cnt
 
 
+@trace.span("physics.step")
 def step_planar_staged(b: PlanarBodies, params: SolverParams,
                        cache: PlanarCache, key_id=None, *,
                        sat_fn=sat_fleet, solve_fn=solve_fleet):
     """step_planar_cached with the middle in stages: two kernels and the
     solve pack between them where the fused step has one kernel. Same
     results up to the rounding of the per-body sums on the card."""
+    return _step_staged(b, params, cache, key_id, sat_fn=sat_fn, solve_fn=solve_fn)
+
+
+def _step_staged(b, params, cache, key_id=None, *, sat_fn=sat_fleet, solve_fn=solve_fleet):
+    """step_planar_staged without its `physics.step` span (the fused step's
+    other routes take it inside their own)."""
     b = planar_integrate_velocities(b, params.dt, params.gravity)
     ia, ib, pair_valid, n_cand = planar_broadphase(b, params.max_pairs)
     con = planar_contacts(b, ia, ib, pair_valid, params.shape_kinds, sat_fn=sat_fn)

@@ -12,12 +12,15 @@ JSON lines: the step record (wall, busy, idle share, kernel launches per
 step) and the kernels with the most device time, each with the card's
 name and power limit. Needs a CUDA device.
 
---stages profiles `step_planar_staged` (two kernels and the solve pack
-between them) in place of the fused step, then runs each stage of the
-staged step alone on one step's own inputs (front:
-integrate + broadphase; contacts; warm gather; solve, with its pack and
-its kernel also alone; store; back: sleep + integrate positions), 20
-times each, synchronized, and prints one record per stage.
+Then one record per stage of the step from the step's own spans
+(scx_torch.telemetry.trace: `physics.broadphase`, `physics.key_match`,
+...) over the same window: its device ms a step (the interval between
+the CUDA events at its ends: its kernels and any idle between them) and
+its share of `physics.step`'s. At these 1024 envs the host paces the
+step, so a stage's interval is mostly the host's time to dispatch it; the
+benchmark's cells (portbench/, 16,384 envs, where the card paces the step)
+read device time. --stages profiles `step_planar_staged` (two kernels and
+the solve pack between them) in place of the fused step.
 """
 
 from __future__ import annotations
@@ -34,43 +37,15 @@ import torch
 from scx_torch.physics import fleet
 from scx_torch.physics import planar as pp
 from scx_torch.physics.solver import SolverParams
-from scx_torch.profile_frame import _device_events, _profile
+from scx_torch.telemetry import trace
 
 ENVS, BODIES, WARM, STEPS = 1024, 64, 60, 20
-
-
-def staged_stages(b, params, cache):
-    """Each stage of one staged step as a function of that step's own inputs."""
-    b1 = pp.planar_integrate_velocities(b, params.dt, params.gravity)
-    ia, ib, val, n_cand = pp.planar_broadphase(b1, params.max_pairs)
-    ga, gb, pvf = pp._sat_inputs(b1, ia, ib, val)
-    con = pp.planar_contacts(b1, ia, ib, val, params.shape_kinds)
-    lam0 = pp.planar_gather_warm(cache, ia, ib, val, con.cand)
-    jac, vw0, _ = pp.solve_pack(b1, con, params, ia, ib, lam0)
-    vel, omega, lam, cnt = pp.planar_solve(b1, con, params, ia, ib, lam0)
-
-    def front():
-        x = pp.planar_integrate_velocities(b, params.dt, params.gravity)
-        return pp.planar_broadphase(x, params.max_pairs)
-
-    return {
-        "front (integrate + broadphase)": front,
-        "contacts": lambda: pp.planar_contacts(b1, ia, ib, val, params.shape_kinds),
-        "contacts: SAT kernel": lambda: pp.sat_fleet(ga, gb, pvf, params.shape_kinds),
-        "warm gather": lambda: pp.planar_gather_warm(cache, ia, ib, val, con.cand),
-        "solve": lambda: pp.planar_solve(b1, con, params, ia, ib, lam0),
-        "solve: setup + pack": lambda: pp.solve_pack(b1, con, params, ia, ib, lam0),
-        "solve: kernel": lambda: pp.solve_fleet(jac, ia, ib, vw0, params.iterations),
-        "store": lambda: pp.planar_store(cache, ia, ib, val, con, *lam),
-        "back (sleep + integrate positions)": lambda: pp._finish_step(
-            b1, params, vel, omega, cnt, val, n_cand, con.valid, con.trigger_overlap),
-    }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stages", action="store_true",
-                    help="profile step_planar_staged, whole and then stage by stage")
+                    help="profile step_planar_staged in place of the fused step")
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -89,6 +64,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    trace.clear_spans()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         b, cache, ovf = fleet.rollout(b, cache, params, STEPS, step_fn=step_fn)
@@ -126,15 +102,14 @@ def main(argv=None) -> int:
             "ms_per_step": us / 1e3 / STEPS,
             "share_of_busy": us / busy_us if busy_us else 0.0,
         }), flush=True)
-    if args.stages:
-        for name, fn in staged_stages(b, params, cache).items():
-            fn()
-            prof, wall, _ = _profile(fn, STEPS)
-            busy, count, _ = _device_events(prof)
-            print(json.dumps({**base, "record": "stage", "stage": name,
-                              "device_ms_per_step": busy / 1e3 / STEPS,
-                              "launches_per_step": count / STEPS,
-                              "synced_wall_ms": wall * 1e3}), flush=True)
+    stage_ms = defaultdict(float)
+    for sp in trace.spans():
+        stage_ms[sp.name] += sp.device_ms
+    step_ms = stage_ms.pop("physics.step")
+    for name, ms in stage_ms.items():
+        print(json.dumps({**base, "record": "stage", "stage": name,
+                          "device_ms_per_step": ms / STEPS,
+                          "share_of_step": ms / step_ms}), flush=True)
     return 0
 
 
