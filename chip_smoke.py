@@ -25,9 +25,10 @@ the first failure:
      version on the card, (a) at the main shape after 3 warm steps, (b)
      on a 64 x 24 fleet of boxes, spheres and capsules;
   4. physics path: a 240-step rollout through the kernel, which must
-     launch it once per step, overflow no pair list and keep every state
-     finite; the kernel against its plain version again on the next
-     step's operands, where the settled pile holds envs with more live
+     launch it and the key-match kernel once per step, overflow no pair
+     list and keep every state finite; the kernel against its plain
+     version again on the next step's operands, where the settled pile
+     holds envs with more live
      pairs (a valid contact) than the kernel's register round
      (REGISTER_ROUND_PAIRS: the overflow rounds run), and for the record
      against the plain version run with deterministic algorithms, whose
@@ -41,13 +42,18 @@ the first failure:
      restitution / trigger bit for bit and the floats within 5e-6, with
      the count of values whose bits differ printed; solve: within 2e-5
      from the same pack); then the staged path: 240
-     steps of step_planar_staged, one launch of each kernel per step, no
-     pair overflow, finite state, both kernels against their plain
-     versions again on the next step's operands (the solve also against
+     steps of step_planar_staged, one launch of each kernel (the key
+     match's too) per step, no pair overflow, finite state, both kernels
+     against their plain versions again on the next step's operands (the
+     solve also against
      its plain version with deterministic algorithms; it fails unless
      this or phase 4's settled check had an env past the register round),
      and after 20 steps 99% of the envs within 1e-5 of the fused path's
      positions;
+  4c. key-match kernel vs plain (warm_phase): planar._warm_prev's kernel
+     on the pile at the benchmark's 16,384 envs after WARM_STEPS fused
+     steps, bit for bit against warm_prev_reference, both timed, beside
+     its byte bound (timed alone in phase 10);
   5. raster kernels vs plain: (a) rasterize_clusters on the city frame's
      own setup and cluster lists, (b) rasterize_tiles at 1280x720 on three
      cubes and a ground slab (no tile list overflows), each held to scx's
@@ -218,6 +224,8 @@ BIG_STRIPS, BIG_NL, BIG_NB, BIG_NT, BIG_NV, BIG_STEPS = 4, 512, 400, 48, 8, 5
 BIG_FRAME = (1280, 768)
 SPATIAL_N, SPATIAL_WIDTH, SPATIAL_PAIRS, SPATIAL_STEPS = 512, 64.0, 256, 10
 SHARD_DP, SHARD_RL_STEPS, SHARD_ENVS = 4, 3, None  # None: the tile fleet's 4096 envs
+# phase 4c: the key match's envs (portbench's pile64 cells) and fused steps before it
+WARM_ENVS, WARM_STEPS = 16_384, 240
 # phase 13: the editor's viewport sizes (its default, and 720p), the
 # instances its document is filled to (its draw cap), the timed frames per
 # size; the console's frames per check; the F1 sandbox's capacity and frames
@@ -402,6 +410,7 @@ def reset_counts():
     pp.MIDDLE_KERNEL_LAUNCHES = 0
     pp.SAT_KERNEL_LAUNCHES = 0
     pp.SOLVE_KERNEL_LAUNCHES = 0
+    pp.WARM_KERNEL_LAUNCHES = 0
     trc.RASTER_CLUSTERS_LAUNCHES = 0
     tr.RASTER_TILES_LAUNCHES = 0
     trc.RASTER_CLUSTERS_BATCHED_LAUNCHES = 0
@@ -532,6 +541,51 @@ def staged_bounds(sat_ops, solve_ops, kinds, iters) -> dict:
             "solve_bound_ms": solve_bound, "solve_bound_by": solve_by,
             "solve_bytes": solve_bytes, "solve_pack_bytes": pack_bytes,
             "solve_operations": solve_count, "contact_pair_share": solve_live}
+
+
+def warm_phase(card, dev=None):
+    """Phase 4c: the key-match kernel (planar._warm_prev) on the pile at
+    WARM_ENVS envs after WARM_STEPS fused steps: one launch, bit for bit
+    against warm_prev_reference, both timed, beside its bound: the bytes it
+    must move (this step's keys and pair-valid flags, the stored keys, the
+    records of the matched slots, prev). Returns (the kernel alone, for
+    phase 10; the record for the kernels line)."""
+    import torch
+    from scx_torch.physics import fleet
+    from scx_torch.physics import planar as pp
+    from scx_torch.physics.solver import SolverParams
+    from scx_torch.physics.warmstart import key_match
+    from scx_torch.timing import cuda_ms
+
+    dev = dev or torch.device("cuda", 0)
+    params = SolverParams(max_pairs=128, iterations=6, shape_kinds=("box",))
+    b = fleet.build_pile_fleet(WARM_ENVS, BODIES, dev)
+    cache = pp.empty_planar_cache(WARM_ENVS, params.max_pairs, device=dev)
+    b, cache, _ = fleet.rollout(b, cache, params, WARM_STEPS)
+    b = pp.planar_integrate_velocities(b, params.dt, params.gravity)
+    ia, ib, pair_valid, _ = pp.planar_broadphase(b, params.max_pairs)
+    ka, kb = pp._pair_keys(ia, ib, pair_valid)
+    ops = (cache, ka, kb, pair_valid)
+    before = pp.WARM_KERNEL_LAUNCHES
+    got = pp._warm_prev(*ops)
+    launches = pp.WARM_KERNEL_LAUNCHES - before
+    want = pp.warm_prev_reference(*ops)
+    unequal = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if launches != 1 or unequal:
+        fail(f"key-match kernel: {launches} launches, {unequal} words unequal to plain")
+    hit, _ = key_match(ka, kb, pair_valid, cache.key_a, cache.key_b)
+    e, p = ka.shape
+    matched = int(hit.sum())
+    bytes_moved = 9 * e * p + 8 * cache.key_a.numel() + 4 * got.shape[1] * (matched + e * p)
+    bound_ms, by = bound(bytes_moved, 0)
+    rec = {"envs": e, "pairs": p, "steps": WARM_STEPS, "matched_slots": matched,
+           "pair_valid_share": float(pair_valid.float().mean()), "unequal_words": unequal,
+           "ms": cuda_ms(lambda: pp._warm_prev(*ops), 20),
+           "plain_ms": cuda_ms(lambda: pp.warm_prev_reference(*ops), 5),
+           "bound_ms": bound_ms, "bound_by": by, "bytes": bytes_moved}
+    print(json.dumps({"check": "planar_warm", **rec, "card": card}), flush=True)
+    return [("planar_warm", "planar_warm_match_kernel",
+             functools.partial(pp._warm_prev, *ops))], rec
 
 
 def physics_residency(card):
@@ -2185,7 +2239,7 @@ def main():
 
     reset_counts()
     b, cache, ovf, secs = run(pp.step_planar_cached, STEPS)
-    launches = pp.MIDDLE_KERNEL_LAUNCHES
+    launches, warm_launches = pp.MIDDLE_KERNEL_LAUNCHES, pp.WARM_KERNEL_LAUNCHES
     finite = all(
         torch.isfinite(x).all().item()
         for x in (*b.pos, *b.quat, *b.vel, *b.omega)
@@ -2194,8 +2248,9 @@ def main():
     print(json.dumps({"metric": "physics_env_steps_per_sec", "path": "cuda-kernel",
                       "value": fused_rate, "envs": ENVS, "bodies": BODIES,
                       "steps": STEPS, "seconds": secs, "card": card}), flush=True)
-    if launches != STEPS:
-        fail(f"the main path launched the middle kernel {launches} times in {STEPS} steps")
+    if launches != STEPS or warm_launches != STEPS:
+        fail(f"the main path launched the middle kernel {launches} and the key-match kernel "
+             f"{warm_launches} times in {STEPS} steps")
     if ovf != 0:
         fail(f"pair overflow {ovf} in the main path")
     if not finite or tuple(b.pos.y.shape) != (ENVS, BODIES):
@@ -2253,12 +2308,15 @@ def main():
     reset_counts()
     b_st, cache_st, ovf, secs = run(pp.step_planar_staged, STEPS)
     sat_launches, solve_launches = pp.SAT_KERNEL_LAUNCHES, pp.SOLVE_KERNEL_LAUNCHES
+    staged_warm_launches = pp.WARM_KERNEL_LAUNCHES
     print(json.dumps({"metric": "physics_env_steps_per_sec", "path": "cuda-staged",
                       "value": ENVS * STEPS / secs, "envs": ENVS, "bodies": BODIES,
                       "steps": STEPS, "seconds": secs, "card": card}), flush=True)
-    if sat_launches != STEPS or solve_launches != STEPS or pp.MIDDLE_KERNEL_LAUNCHES != 0:
-        fail(f"the staged path launched the SAT kernel {sat_launches} and the solve kernel "
-             f"{solve_launches} times in {STEPS} steps")
+    if (sat_launches != STEPS or solve_launches != STEPS or staged_warm_launches != STEPS
+            or pp.MIDDLE_KERNEL_LAUNCHES != 0):
+        fail(f"the staged path launched the SAT kernel {sat_launches}, the solve kernel "
+             f"{solve_launches} and the key-match kernel {staged_warm_launches} times in "
+             f"{STEPS} steps")
     if ovf != 0:
         fail(f"pair overflow {ovf} in the staged path")
     if not all(torch.isfinite(x).all().item()
@@ -2278,6 +2336,10 @@ def main():
                       "envs_within_1e-5": (dev_env <= 1e-5).float().mean().item()}), flush=True)
     if (dev_env <= 1e-5).float().mean().item() < 0.99:
         fail("the staged path's trajectory departs from the fused path's")
+
+    # ---- 4c. the key-match kernel vs plain ---------------------------------
+    warm_alone, warm = warm_phase(card, dev)
+    alone += warm_alone
 
     # ---- 5. raster kernels vs plain --------------------------------------
     t0 = time.perf_counter()
@@ -2707,6 +2769,10 @@ def main():
          "plain_ms": solve_plain_ms,
          "bound_ms": solve_bound, "bound_by": solve_by, "library_ms": None,
          "bigscene": scale_out["planar_solve"], "plain_route": plain_route["planar_solve"]},
+        {"name": "planar_warm", "route": "cuda",
+         "source": "scx_torch/physics/csrc/planar_warm.cu",
+         "replaces": None, "launches": warm_launches, "max_abs_err": 0.0,
+         "kernel_ms": kernel_alone["planar_warm"], **warm, "library_ms": None},
         {"name": "rasterize_clusters", "route": "cuda",
          "source": "scx_torch/ops/csrc/raster.cu",
          "replaces": "scx/ops/raster_clusters.py:404",

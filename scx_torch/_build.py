@@ -118,6 +118,8 @@ def load() -> ctypes.CDLL:
     lib.scx_planar_solve_prepare.restype = i32
     lib.scx_planar_solve_occupancy.argtypes = [ctypes.c_longlong, ctypes.POINTER(i32)]
     lib.scx_planar_solve_occupancy.restype = i32
+    lib.scx_planar_warm.argtypes = [vp] * 10 + [i32] * 4 + [vp]
+    lib.scx_planar_warm.restype = i32
     lib.scx_raster_clusters.argtypes = [vp] * 7 + [i32] * 9 + [vp]
     lib.scx_raster_clusters.restype = i32
     lib.scx_raster_tiles.argtypes = [vp] * 5 + [i32] * 7 + [vp]

@@ -14,7 +14,9 @@ candidate ids and first-max ties, validity and trigger planes) is kept.
 The middle of the step (SAT narrowphase + warm-start re-association +
 solver setup + relaxed-Jacobi sweeps) is `middle`: one hand-written CUDA
 kernel per fleet on the GPU (csrc/planar_middle.cu), and its plain
-PyTorch version `middle_reference` for tensors on the CPU.
+PyTorch version `middle_reference` for tensors on the CPU. The warm-start
+key match before it (`_warm_prev`) is one kernel too (csrc/planar_warm.cu),
+on every route; its plain version is `warm_prev_reference`.
 
 The same middle also exists in stages, with scx's names: `planar_contacts`
 (the fleet SAT kernel `sat_fleet`), `planar_gather_warm`, `planar_solve`
@@ -647,10 +649,11 @@ def empty_planar_cache(envs: int, max_pairs: int, device=None) -> PlanarCache:
     )
 
 
-@trace.span("physics.key_match")
-def _warm_prev(cache: PlanarCache, ka, kb, pair_valid):
+def warm_prev_reference(cache: PlanarCache, ka, kb, pair_valid):
     """The key-matched previous pair record [E, 4K, P]: cand+1 rows, then
-    lam_n / lam_1 / lam_2 rows; zeros where a pair has no match."""
+    lam_n / lam_1 / lam_2 rows; zeros where a pair has no match. ka, kb,
+    pair_valid [E, P]: this step's keys (_pair_keys) and pair-valid flags;
+    the cache's slots [E, P_old] are the stored pairs."""
     hit, j = key_match(ka, kb, pair_valid, cache.key_a, cache.key_b)
     old = torch.cat(
         [(cache.cand + 1).to(torch.float32), cache.lam_n, cache.lam_1,
@@ -659,6 +662,42 @@ def _warm_prev(cache: PlanarCache, ka, kb, pair_valid):
     )  # [E, 4K, P_old]
     prev = torch.gather(old, -1, j[..., None, :].expand(old.shape[:-1] + j.shape[-1:]))
     return torch.where(hit[..., None, :], prev, 0.0)
+
+
+WARM_KERNEL_LAUNCHES = 0  # launches of the CUDA key-match kernel, never reset here
+
+
+@trace.span("physics.key_match")
+def _warm_prev(cache: PlanarCache, ka, kb, pair_valid):
+    """warm_prev_reference's record. CPU tensors take warm_prev_reference;
+    CUDA tensors launch the hand-written kernel of csrc/planar_warm.cu on
+    the current stream, or raise."""
+    global WARM_KERNEL_LAUNCHES
+    dev = ka.device
+    if dev.type == "cpu":
+        return warm_prev_reference(cache, ka, kb, pair_valid)
+    if dev.type != "cuda":
+        raise ValueError(f"_warm_prev: unsupported device {dev}")
+    e, p = ka.shape
+    p_old = cache.key_a.shape[-1]
+    i32, f32 = torch.int32, torch.float32
+    _check_operands("_warm_prev", (
+        (ka, (e, p), i32), (kb, (e, p), i32), (pair_valid, (e, p), torch.bool),
+        (cache.key_a, (e, p_old), i32), (cache.key_b, (e, p_old), i32),
+        (cache.cand, (e, _K, p_old), i32), (cache.lam_n, (e, _K, p_old), f32),
+        (cache.lam_1, (e, _K, p_old), f32), (cache.lam_2, (e, _K, p_old), f32),
+    ))
+    prev = torch.empty((e, 4 * _K, p), dtype=f32, device=dev)
+    err = _build.load().scx_planar_warm(
+        ka.data_ptr(), kb.data_ptr(), pair_valid.data_ptr(), cache.key_a.data_ptr(),
+        cache.key_b.data_ptr(), cache.cand.data_ptr(), cache.lam_n.data_ptr(),
+        cache.lam_1.data_ptr(), cache.lam_2.data_ptr(), prev.data_ptr(), e, p, p_old,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"key-match kernel launch failed: CUDA error {err}")
+    WARM_KERNEL_LAUNCHES += 1
+    return prev
 
 
 # ---------------------------------------------------------------------------

@@ -22,19 +22,26 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+KERNEL_MS_SESSIONS = 3  # profiler sessions kernel_ms runs before it gives up
+
+
 def kernel_ms(fn, reps, name):
     """Mean device time of one launch of the CUDA kernel whose name holds
     `name`, over the launches traced in `reps` calls of fn after one
-    warm-up (the tracer may drop one)."""
+    warm-up (the tracer may drop one). Now and then the profiler loses a
+    whole session's device records while its host records show the
+    launches, so a session that traced no such launch is run again, up to
+    KERNEL_MS_SESSIONS in all, before it raises."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [ev.time_range.elapsed_us() for ev in prof.events()
-          if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.name]
-    if not us:
-        raise RuntimeError(f"{name}: no launch traced in {reps} calls")
-    return sum(us) / len(us) / 1e3
+    for _ in range(KERNEL_MS_SESSIONS):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+    raise RuntimeError(f"{name}: no launch traced in {KERNEL_MS_SESSIONS} sessions of {reps} calls")

@@ -23,6 +23,7 @@ import torch
 
 from scx_torch.physics import planar as tp
 from scx_torch.physics.rigid import make_bodies
+from scx_torch.physics.warmstart import key_match
 
 SHIM = r"""
 #include <barrier>
@@ -295,3 +296,70 @@ def check_sat_case(name, pvf, ref):
         tie = valid[:, 1:] & valid[:, :-1] & (depth[:, 1:] == depth[:, :-1])
         assert tie.any(2).any(1).all()
         assert depth[1, 0, 1] == float("inf") and not valid[1, 0, 1] and ref[8][1, 0, 1] == 2
+
+
+def warm_case(envs, pairs, keys="rows", pairs_old=None, seed=0, device="cpu"):
+    """A warm-start cache and this step's keys for the key match (planar.
+    _warm_prev), from a seeded numpy generator: (cache, ka, kb, pair_valid).
+
+    Keys are body pairs of a few bodies (keys="rows": body indices, so
+    stored keys repeat) or of uids past 2^24 (keys="uids", planar._pair_keys
+    with key_id), some a float32 apart, some equal in their low 24 bits. The cache holds, at random, empty slots (both keys -1),
+    slots with one key -1, and copies of earlier slots' keys further on
+    (duplicates: the lowest stored slot must win). This step's slots take a
+    stored slot's keys (hits, also where pair_valid is False), fresh keys
+    (misses) or -1 keys with pair_valid True (which must not match the
+    empty slots); the records hold -0.0, inf and NaN among their floats."""
+    rng = np.random.default_rng([seed, envs, pairs, pairs_old or pairs, keys == "uids"])
+    p_old = pairs_old or pairs
+    if keys == "rows":
+        key = lambda *shape: rng.integers(0, 8, shape)
+    else:  # neighbours past 2^24 (one float32), and keys equal below bit 24
+        key = lambda *shape: 2**24 * rng.integers(1, 64, shape) + rng.integers(0, 64, shape)
+    ka_old, kb_old = key(envs, p_old), key(envs, p_old)
+    dup = rng.random((envs, p_old)) < 0.1  # an earlier slot's keys again
+    src = (rng.random((envs, p_old)) * np.arange(p_old)).astype(np.int64)
+    ka_old = np.where(dup, np.take_along_axis(ka_old, src, 1), ka_old)
+    kb_old = np.where(dup, np.take_along_axis(kb_old, src, 1), kb_old)
+    empty = rng.random((envs, p_old))
+    ka_old[empty < 0.25] = -1
+    kb_old[empty < 0.20] = -1
+    kb_old[(empty > 0.95)] = -1  # key_a kept, key_b empty
+    pick = rng.integers(0, p_old, (envs, pairs))
+    ka, kb = key(envs, pairs), key(envs, pairs)
+    take = rng.random((envs, pairs))
+    hit = take < 0.6
+    ka = np.where(hit, np.take_along_axis(ka_old, pick, 1), ka)
+    kb = np.where(hit, np.take_along_axis(kb_old, pick, 1), kb)
+    ka[take > 0.95] = -1
+    kb[take > 0.97] = -1
+    pair_valid = rng.random((envs, pairs)) < 0.8
+    rec = lambda: rng.standard_normal((envs, 4, p_old)).astype(np.float32)
+    lam = [rec(), rec(), rec()]
+    lam[0][0, 0, :3] = [-0.0, np.inf, np.nan]
+    t = lambda x, dt=torch.int32: torch.from_numpy(np.ascontiguousarray(x)).to(dt).to(device)
+    cache = tp.PlanarCache(
+        key_a=t(ka_old), key_b=t(kb_old),
+        cand=t(rng.integers(-1, 10, (envs, 4, p_old))),
+        lam_n=t(lam[0], torch.float32), lam_1=t(lam[1], torch.float32),
+        lam_2=t(lam[2], torch.float32),
+    )
+    return cache, t(ka), t(kb), t(pair_valid, torch.bool)
+
+
+def check_warm_case(cache, ka, kb, pair_valid, ref):
+    """Asserts that a warm_case reaches what it is for, from
+    planar.warm_prev_reference's record `ref` (CPU tensors)."""
+    hit, _ = key_match(ka, kb, pair_valid, cache.key_a, cache.key_b)
+    assert hit.any() and (~hit & pair_valid).any()
+    assert (ref[:, :4][hit[:, None].expand(-1, 4, -1)] > 0).any()  # matched cand + 1
+    eq = ((ka[..., :, None] == cache.key_a[..., None, :])
+          & (kb[..., :, None] == cache.key_b[..., None, :]))
+    assert (eq & ~pair_valid[..., None]).any()  # invalid pairs with a stored pair's keys
+    assert (eq.sum(-1) > 1).any()  # duplicates among the stored keys
+    assert (eq & (cache.key_a == -1)[..., None, :] & pair_valid[..., None]).any()  # -1 keys
+
+
+def warm_bits_equal(got, want) -> bool:
+    """Two float records equal bit for bit (-0.0 and NaN payloads too)."""
+    return torch.equal(got.contiguous().view(torch.int32), want.contiguous().view(torch.int32))
